@@ -1,0 +1,140 @@
+"""Build and bind the CUDA kernels of ``csrc/*.cu``.
+
+All kernels live in one shared library with a plain C interface, compiled
+with ``nvcc`` for Hopper (``sm_90a``) at first use and loaded with ctypes.
+The library is keyed by a hash of the sources and flags, and lives under
+``build/sexy_raytracer_tpu_torch/`` at the repository root, so a checkout
+builds what its own sources say. Nothing here runs at import.
+
+Every C entry point launches one kernel on the stream it is given and
+returns ``cudaGetLastError()``; ``Kernel.launch`` raises on a nonzero
+code and counts the launch. FMA contraction is off (``-fmad=false``) and
+divide and sqrt stay IEEE (no fast math), so a kernel rounds exactly like
+its plain PyTorch version, which runs one operation at a time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG.parent / "build" / "sexy_raytracer_tpu_torch"
+SOURCES = ("find.cu", "fused.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib = None
+build_info: dict = {}
+# every Kernel, in the order their modules were imported
+KERNELS: list = []
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
+                           "kernels are compiled with its nvcc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return _BUILD / f"libsrt_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless this source hash is already built.
+
+    Records the wall time of the compile (0 when cached) and ptxas's
+    register and shared-memory report, kept beside the library, in
+    ``build_info``.
+    """
+    out = library_path()
+    log_path = out.with_suffix(".log")
+    if out.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        build_info.update(path=str(out), seconds=0.0, cached=True, log=log)
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas=-v",
+           "-o", tmp, *(str(_CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    log = proc.stdout + proc.stderr
+    log_path.write_text(log)
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    build_info.update(path=str(out), seconds=seconds, cached=False, log=log)
+    return out
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.srt_error_string.argtypes = [ctypes.c_int]
+        lib.srt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address for a kernel argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+class Kernel:
+    """One C entry point of the library, with a count of its launches.
+
+    ``launches`` grows by one each time ``launch`` has started the kernel;
+    a run can set it to 0 and read it back to show which kernels it went
+    through.
+    """
+
+    def __init__(self, symbol: str, source: str, replaces: str):
+        self.symbol = symbol
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+        KERNELS.append(self)
+
+    def launch(self, device, *args) -> None:
+        """Call the entry with ``args`` (``ptr`` values and ints) plus the
+        current stream of ``device``; raise if the launch failed."""
+        import torch
+
+        cargs = [a if isinstance(a, ctypes.c_void_p) else ctypes.c_int(a)
+                 for a in args]
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            fn = getattr(library(), self.symbol)
+            fn.argtypes = [type(a) for a in cargs] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            err = fn(*cargs, ctypes.c_void_p(stream))
+        if err != 0:
+            msg = library().srt_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
+        self.launches += 1
+

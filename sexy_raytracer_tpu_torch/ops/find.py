@@ -1,0 +1,534 @@
+"""Cluster-culled closest-hit and any-hit search (counterpart of
+``sexy_raytracer_tpu/ops/pallas_find.py:235-886``).
+
+Two kernels, each with a plain PyTorch version beside it:
+
+* ``find_closest`` replaces the TPU's ``_find_kernel`` (pallas_find.py:170,
+  via ``find_hit_clustered`` :521): the closest hit per ray over its ray
+  block's culled cluster worklist, front to back with a block-wide early
+  out, plus every sphere.
+* ``find_any`` replaces ``_occluded_kernel`` (pallas_find.py:681, via
+  ``find_occluded`` :765): is there a non-emissive primitive with t in
+  [t_min, t_bound)? Lanes die on their first occluder.
+
+Both wrappers launch the CUDA kernel (csrc/find.cu) on CUDA tensors and
+run the plain version on CPU tensors; there is no fallback between them.
+
+Data layout (the TPU kernel's, so that inputs compare one to one):
+
+* triangle pack ``[NC, 16, CK]``: rows n(3), d, q0(3), c0, q1(3), c1,
+  q2(3), c2 for cluster c's CK = CLUSTER_SIZE triangles (zero padded:
+  n = 0 never passes the plane test);
+* sphere pack ``[Spad, 8]``: center base(3), center delta(3), radius,
+  valid — the center at time t is ``base + delta * t``;
+* rays ``[Rpad, 8]`` (``[Rpad, 9]`` with t_bound for the any-hit query):
+  ox oy oz dx dy dz time t_min; pad lanes have t_min = 3e38 (dead);
+* worklists ``[NB, 1 + 2 NC]`` int32, one row per block of RAY_BLOCK rays:
+  the count of active clusters, their ids front to back, and their
+  block-min entry distances as order-preserving int32 bits.
+
+The kernels keep the JAX package's formulas and evaluation order, and
+the CUDA build disables FMA contraction, so a kernel and its plain
+version agree bit for bit on the same inputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sexy_raytracer_tpu_torch.models.clusters import CLUSTER_SIZE
+from sexy_raytracer_tpu_torch.ops import _cuda
+from sexy_raytracer_tpu_torch.ops.intersect import (
+    _per_ray_t_min,
+    _sph_candidates,
+    sphere_roots,
+)
+from sexy_raytracer_tpu_torch.utils.mathx import EPSILON
+
+# Rays per CUDA block and per worklist row. The TPU grows its ray block
+# to fit the worklists into scalar memory; the card reads them from
+# device memory, so the block stays at the size that culls finest.
+RAY_BLOCK = 128
+_BIG = 3.0e38
+# Above this many clusters the exact per-ray cull's [NC, R] intermediates
+# dominate and the JAX package switches to a per-block interval cull.
+PER_RAY_CULL_MAX_CLUSTERS = 512
+# Elements of one [blocks, RAY_BLOCK, CK] intermediate of the plain find;
+# bounds its memory at large wavefronts.
+_PLAIN_CHUNK_ELEMS = 1 << 24
+
+FIND_CLOSEST = _cuda.Kernel(
+    "srt_find_closest", source="sexy_raytracer_tpu_torch/csrc/find.cu",
+    replaces="sexy_raytracer_tpu/ops/pallas_find.py:170 (_find_kernel)",
+)
+FIND_ANY = _cuda.Kernel(
+    "srt_find_any", source="sexy_raytracer_tpu_torch/csrc/find.cu",
+    replaces="sexy_raytracer_tpu/ops/pallas_find.py:681 (_occluded_kernel)",
+)
+
+
+# ---------------------------------------------------------------------------
+# packs and worklists (plain torch, shared by both kernels)
+# ---------------------------------------------------------------------------
+
+def _pack_triangles(scene):
+    """[NC, 16, CK] plane/edge pack: rows n(3), d, q(9 interleaved), c(3)."""
+    T = scene.tri_v0.shape[0]
+    ck = CLUSTER_SIZE
+    nc = -(-T // ck)
+    q, c = scene.tri_q, scene.tri_c
+    rows = [
+        scene.tri_n[:, 0], scene.tri_n[:, 1], scene.tri_n[:, 2], scene.tri_d,
+        q[:, 0, 0], q[:, 0, 1], q[:, 0, 2], c[:, 0],
+        q[:, 1, 0], q[:, 1, 1], q[:, 1, 2], c[:, 1],
+        q[:, 2, 0], q[:, 2, 1], q[:, 2, 2], c[:, 2],
+    ]
+    pack = torch.zeros((16, nc * ck), dtype=torch.float32,
+                       device=scene.tri_v0.device)
+    pack[:, :T] = torch.stack(rows, dim=0)
+    return pack.reshape(16, nc, ck).transpose(0, 1).contiguous(), nc
+
+
+def _pack_spheres(scene, occluder=None):
+    """[Spad, 8] columns: center base(3), center delta(3), radius, valid.
+
+    ``occluder`` [S] bool clears the valid column of spheres that do not
+    block light (the any-hit query skips emissive spheres).
+    """
+    S = scene.sph_c0.shape[0]
+    spad = max(8, -(-S // 8) * 8)
+    cols = torch.zeros((spad, 8), dtype=torch.float32,
+                       device=scene.sph_c0.device)
+    if S == 0:
+        return cols
+    c0, c1, t0, t1 = scene.sph_c0, scene.sph_c1, scene.sph_t0, scene.sph_t1
+    moving = torch.any(c0 != c1, dim=-1)
+    denom = torch.where(t1 == t0, 1.0, t1 - t0)
+    delta = torch.where(moving[:, None], (c1 - c0) / denom[:, None], 0.0)
+    cols[:S, 0:3] = c0 - delta * t0[:, None]
+    cols[:S, 3:6] = delta
+    cols[:S, 6] = scene.sph_radius
+    cols[:S, 7] = 1.0 if occluder is None else occluder.to(torch.float32)
+    return cols
+
+
+def cluster_lists(org, dir, t_min, cmin, cmax, t_max=None,
+                  ray_block=RAY_BLOCK):
+    """Compacted per-block active-cluster lists [NB, 1 + 2 NC] int32.
+
+    A cluster is active for block b if any of its rays enters the
+    cluster's AABB at t in [t_min, t_max) (zero-direction-safe slab test,
+    aabb.h:11-27; conservative, never a false miss). Rays with
+    t_min >= 3e38 (dead lanes) activate nothing. Active ids are ordered by
+    the block-min entry distance so the kernel shrinks best_t early.
+    """
+    if cmin.shape[0] > PER_RAY_CULL_MAX_CLUSTERS:
+        return cluster_lists_block(org, dir, t_min, cmin, cmax, t_max,
+                                   ray_block)
+    R = org.shape[0]
+    nb = -(-R // ray_block)
+    pad_r = nb * ray_block - R
+    o_rows = torch.nn.functional.pad(org.T, (0, pad_r))
+    d_rows = torch.nn.functional.pad(dir.T, (0, pad_r))
+    t_min_row = torch.nn.functional.pad(t_min, (0, pad_r), value=_BIG)[None]
+    t_max_row = None
+    if t_max is not None:
+        t_max_row = torch.nn.functional.pad(t_max, (0, pad_r),
+                                            value=-_BIG)[None]
+    return _cull_rows(o_rows, d_rows, t_min_row, t_max_row, cmin, cmax, nb,
+                      ray_block)
+
+
+def _cull_rows(o_rows, d_rows, t_min_row, t_max_row, cmin, cmax, nb,
+               ray_block):
+    """Exact per-ray cull on row-major ray data -> lists [NB, 1 + 2 NC].
+
+    o_rows/d_rows: [3, Rp]; t_min_row/t_max_row: [1, Rp].
+    """
+    NC = cmin.shape[0]
+    Rp = o_rows.shape[1]
+    t_near = t_min_row.expand(NC, Rp)
+    t_far = torch.full((NC, Rp), _BIG, device=o_rows.device)
+    for a in range(3):
+        o_a = o_rows[a:a + 1]
+        d_a = d_rows[a:a + 1]
+        zero = d_a == 0.0
+        inv = 1.0 / torch.where(zero, 1.0, d_a)
+        lo_c = cmin[:, a][:, None]
+        hi_c = cmax[:, a][:, None]
+        near = (lo_c - o_a) * inv
+        far = (hi_c - o_a) * inv
+        lo = torch.minimum(near, far)
+        hi = torch.maximum(near, far)
+        inside = (o_a >= lo_c) & (o_a <= hi_c)
+        lo = torch.where(zero, torch.where(inside, -_BIG, _BIG), lo)
+        hi = torch.where(zero, torch.where(inside, _BIG, -_BIG), hi)
+        t_near = torch.maximum(t_near, lo)
+        t_far = torch.minimum(t_far, hi)
+    hit = t_far > t_near
+    if t_max_row is not None:
+        hit &= t_near < t_max_row
+
+    entry = torch.where(hit, t_near, _BIG)
+    hit = hit.reshape(NC, nb, ray_block).any(dim=2).T          # [NB, NC]
+    entry = entry.reshape(NC, nb, ray_block).amin(dim=2).T
+    count = hit.sum(dim=1, dtype=torch.int32)
+    # actives first, front-to-back by block-min entry distance
+    order = torch.sort(torch.where(hit, entry, _BIG), dim=1,
+                       stable=True).indices
+    return _lists_with_entries(count, order, entry)
+
+
+def _lists_with_entries(count, order, entry):
+    """[NB, 1 + NC + NC] rows: count, front-to-back cluster ids, then the
+    matching entry distances as order-preserving int32 bits (non-negative
+    f32s compare identically as ints)."""
+    entry_sorted = torch.gather(entry, 1, order)
+    entry_bits = torch.clamp(entry_sorted, min=0.0).view(torch.int32)
+    return torch.cat(
+        [count[:, None], order.to(torch.int32), entry_bits], dim=1
+    ).contiguous()
+
+
+def cluster_lists_block(org, dir, t_min, cmin, cmax, t_max=None,
+                        ray_block=RAY_BLOCK):
+    """The per-block interval cull for scenes past
+    ``PER_RAY_CULL_MAX_CLUSTERS`` clusters (pallas_find.py:389)."""
+    raise NotImplementedError(
+        f"scenes with more than {PER_RAY_CULL_MAX_CLUSTERS} triangle "
+        "clusters need the per-block interval cull, which is not ported "
+        "yet (ROADMAP.md queue 1, big scenes)"
+    )
+
+
+def _uncull_lists(nb, nc, device):
+    """Every cluster for every block, with zero entry bits (no early out)."""
+    ids = torch.arange(nc, dtype=torch.int32, device=device).expand(nb, nc)
+    return torch.cat(
+        [torch.full((nb, 1), nc, dtype=torch.int32, device=device), ids,
+         torch.zeros((nb, nc), dtype=torch.int32, device=device)], dim=1
+    ).contiguous()
+
+
+def _ray_table(columns, pad_values):
+    """[R] columns -> [Rpad, K] float32 ray table padded to whole blocks."""
+    rays = torch.stack([c.to(torch.float32) for c in columns], dim=1)
+    R = rays.shape[0]
+    nb = -(-R // RAY_BLOCK)
+    pad = nb * RAY_BLOCK - R
+    if pad:
+        fill = torch.zeros((pad, rays.shape[1]), device=rays.device)
+        for col, value in pad_values.items():
+            fill[:, col] = value
+        rays = torch.cat([rays, fill])
+    return rays.contiguous(), nb
+
+
+def _scene_lists(scene, org, dir, t_min, t_max, nb, cull):
+    """Triangle pack and worklists for a wavefront."""
+    T = scene.tri_v0.shape[0]
+    dev = org.device
+    if T == 0:
+        pack = torch.zeros((0, 16, CLUSTER_SIZE), device=dev)
+        return pack, torch.zeros((nb, 1), dtype=torch.int32, device=dev)
+    tri_pack, nc = _pack_triangles(scene)
+    if cull and scene.cluster_min.shape[0] == nc:
+        lists = cluster_lists(org, dir, t_min, scene.cluster_min,
+                              scene.cluster_max, t_max=t_max)
+    else:
+        lists = _uncull_lists(nb, nc, dev)
+    return tri_pack, lists
+
+
+# ---------------------------------------------------------------------------
+# closest hit
+# ---------------------------------------------------------------------------
+
+def find_hit_clustered(scene, org, dir, time, t_min=None, cull=True):
+    """Closest hit for a ray wavefront. Returns (prim [R] int32, t [R]).
+
+    ``prim``: global primitive id (triangles then spheres), -1 = miss.
+    ``t_min`` may be a scalar or per-ray [R]; rays with ``t_min >= 3e38``
+    are dead (miss everything, excluded from the cull lists).
+    """
+    R = org.shape[0]
+    t_min = _per_ray_t_min(t_min, org)
+    rays, nb = _ray_table(
+        [org[:, 0], org[:, 1], org[:, 2], dir[:, 0], dir[:, 1], dir[:, 2],
+         time, t_min], {7: _BIG})
+    # the closest sphere hit bounds each ray: clusters wholly beyond it
+    # cannot change the answer
+    sph_bound = None
+    if scene.sph_c0.shape[0] > 0:
+        sph_bound, _ = _sph_candidates(scene, org, dir, time, t_min)
+    tri_pack, lists = _scene_lists(scene, org, dir, t_min, sph_bound, nb,
+                                   cull)
+    t, prim = find_closest(lists, rays, tri_pack, _pack_spheres(scene),
+                           scene.tri_v0.shape[0])
+    t, prim = t[:R], prim[:R]
+    return prim, torch.where(prim >= 0, t, float("inf"))
+
+
+def find_closest(lists, rays, tri_pack, sph_pack, n_tris):
+    """Closest hit per ray -> (t [Rpad] f32, prim [Rpad] int32; -1 = miss).
+
+    Launches the CUDA kernel on CUDA tensors (csrc/find.cu), runs
+    ``find_closest_plain`` on CPU tensors.
+
+    Kernel note. Replaces ``_find_kernel`` (pallas_find.py:170). One CUDA
+    block of RAY_BLOCK threads per worklist row, one thread per ray. The
+    block stages each active cluster's [16, CK] tile (16 KB) in shared
+    memory and every thread tests its ray against the CK triangles
+    (broadcast reads, no bank conflicts). Bound: the FP32 pipes and the
+    divide, 16 loads and ~40 flops per (ray, triangle) pair; device
+    memory traffic is the 32 B ray, 8 B out and the tiles, which L2
+    serves. The culled worklist keeps pairs few, and the block stops as
+    soon as no remaining cluster's entry distance can beat the block's
+    worst best-t (``__syncthreads_or``), as the TPU kernel does.
+    """
+    if not rays.is_cuda:
+        return find_closest_plain(lists, rays, tri_pack, sph_pack, n_tris)
+    nb = _check_find_args(lists, rays, tri_pack, sph_pack, 8)
+    Rpad = rays.shape[0]
+    out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
+    out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
+    FIND_CLOSEST.launch(
+        rays.device,
+        _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays),
+        _cuda.ptr(tri_pack), tri_pack.shape[0], tri_pack.shape[2],
+        _cuda.ptr(sph_pack), sph_pack.shape[0], n_tris, RAY_BLOCK, nb,
+        _cuda.ptr(out_t), _cuda.ptr(out_i),
+    )
+    return out_t, out_i
+
+
+def _check_find_args(lists, rays, tri_pack, sph_pack, n_cols):
+    """Validate what the find kernels read; returns the block count."""
+    dev = rays.device
+    for name, x, dtype in (("lists", lists, torch.int32),
+                           ("rays", rays, torch.float32),
+                           ("tri_pack", tri_pack, torch.float32),
+                           ("sph_pack", sph_pack, torch.float32)):
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(
+                f"{name}: need a contiguous {dtype} tensor on {dev}, got "
+                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
+            )
+    Rpad = rays.shape[0]
+    if rays.ndim != 2 or rays.shape[1] != n_cols or Rpad % RAY_BLOCK:
+        raise ValueError(f"rays must be [nb * {RAY_BLOCK}, {n_cols}], got "
+                         f"{tuple(rays.shape)}")
+    nb = Rpad // RAY_BLOCK
+    nc = tri_pack.shape[0]
+    if lists.shape != (nb, 1 + 2 * nc):
+        raise ValueError(f"lists {tuple(lists.shape)} do not fit {nb} "
+                         f"blocks of {nc} clusters")
+    if tri_pack.ndim != 3 or tri_pack.shape[1] != 16 or tri_pack.shape[2] > 512:
+        raise ValueError(f"tri_pack must be [NC, 16, CK <= 512], got "
+                         f"{tuple(tri_pack.shape)}")
+    if sph_pack.ndim != 2 or sph_pack.shape[1] != 8:
+        raise ValueError(f"sph_pack must be [Spad, 8], got "
+                         f"{tuple(sph_pack.shape)}")
+    return nb
+
+
+def _sphere_tc(rays, sph_pack):
+    """Per (ray, sphere) nearest valid root, else BIG: [n, Spad]."""
+    ox, oy, oz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]
+    dx, dy, dz = rays[:, 3:4], rays[:, 4:5], rays[:, 5:6]
+    tm, t_min = rays[:, 6:7], rays[:, 7:8]
+    s = sph_pack
+    cx = s[:, 0] + s[:, 3] * tm
+    cy = s[:, 1] + s[:, 4] * tm
+    cz = s[:, 2] + s[:, 5] * tm
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    a = dx * dx + dy * dy + dz * dz
+    half_b = ocx * dx + ocy * dy + ocz * dz
+    cterm = ocx * ocx + ocy * ocy + ocz * ocz - s[:, 6] * s[:, 6]
+    disc = half_b * half_b - a * cterm
+    has = disc >= 0.0
+    sq = torch.sqrt(torch.where(has, disc, 0.0))
+    safe_a = torch.where(a == 0.0, 1.0, a)
+    root0 = (-half_b - sq) / safe_a
+    root1 = (-half_b + sq) / safe_a
+    s_valid = s[:, 7] > 0.0
+    ok0 = has & (root0 >= t_min) & s_valid
+    ok1 = has & (root1 >= t_min) & s_valid
+    return torch.where(ok0, root0, torch.where(ok1, root1, _BIG))
+
+
+def _tile_t(tile, rays_b):
+    """One cluster tile per block against its rays: [n, 16, CK] x
+    [n, BR, 8+] -> (t [n, BR, CK], valid [n, BR, CK])."""
+    ox, oy, oz = rays_b[..., 0:1], rays_b[..., 1:2], rays_b[..., 2:3]
+    dx, dy, dz = rays_b[..., 3:4], rays_b[..., 4:5], rays_b[..., 5:6]
+    t_min = rays_b[..., 7:8]
+    r = [tile[:, i:i + 1, :] for i in range(16)]
+    ndir = dx * r[0] + dy * r[1] + dz * r[2]
+    a_n = ox * r[0] + oy * r[1] + oz * r[2] + r[3]
+    plane_ok = ndir <= -EPSILON
+    t = -a_n / torch.where(plane_ok, ndir, -1.0)
+    px = ox + t * dx
+    py = oy + t * dy
+    pz = oz + t * dz
+    e0 = r[4] * px + r[5] * py + r[6] * pz - r[7]
+    e1 = r[8] * px + r[9] * py + r[10] * pz - r[11]
+    e2 = r[12] * px + r[13] * py + r[14] * pz - r[15]
+    valid = plane_ok & (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (t >= t_min)
+    return t, valid
+
+
+def _worst_bits(x):
+    """The block's largest best-t (or bound) as int32 bits: [n, BR] -> [n]."""
+    return x.view(torch.int32).amax(dim=1)
+
+
+def _block_chunks(nb, tri_pack):
+    ck = max(tri_pack.shape[2], 1)
+    step = max(1, _PLAIN_CHUNK_ELEMS // (RAY_BLOCK * ck))
+    return [(b0, min(nb, b0 + step)) for b0 in range(0, nb, step)]
+
+
+def find_closest_plain(lists, rays, tri_pack, sph_pack, n_tris):
+    """Plain PyTorch version of ``find_closest``: the same worklists, tile
+    order, early out and tie rule (lowest id within a tile, the earlier
+    tile across tiles), vectorized over ray blocks."""
+    Rpad = rays.shape[0]
+    nb = Rpad // RAY_BLOCK
+    nc = tri_pack.shape[0]
+    ck = tri_pack.shape[2]
+    out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
+    out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
+    big_id = torch.tensor(2 ** 30, dtype=torch.int32, device=rays.device)
+    lane = torch.arange(ck, dtype=torch.int32, device=rays.device)
+    for b0, b1 in _block_chunks(nb, tri_pack):
+        rb = rays[b0 * RAY_BLOCK:b1 * RAY_BLOCK]
+        tc = _sphere_tc(rb, sph_pack)
+        sph_t = tc.amin(dim=1)
+        srow = torch.arange(tc.shape[1], dtype=torch.int32,
+                            device=rays.device)
+        sph_i = torch.where(tc <= sph_t[:, None], n_tris + srow,
+                            big_id).amin(dim=1)
+        bt = sph_t.reshape(b1 - b0, RAY_BLOCK)
+        bi = torch.where(sph_t < _BIG, sph_i, -1).reshape(b1 - b0, RAY_BLOCK)
+        if n_tris > 0 and nc > 0:
+            rays_b = rb.reshape(b1 - b0, RAY_BLOCK, -1)
+            lst = lists[b0:b1]
+            count = lst[:, 0]
+            active = torch.ones(b1 - b0, dtype=torch.bool, device=rays.device)
+            for k in range(nc):
+                active &= (k < count) & (lst[:, 1 + nc + k] < _worst_bits(bt))
+                blk = active.nonzero().squeeze(1)
+                if blk.numel() == 0:
+                    break
+                c = lst[blk, 1 + k].long()
+                t, valid = _tile_t(tri_pack[c], rays_b[blk])
+                tcl = torch.where(valid, t, _BIG)
+                tile_t = tcl.amin(dim=2)
+                win = torch.where(tcl <= tile_t[..., None],
+                                  (c[:, None] * ck).to(torch.int32)[..., None]
+                                  + lane, big_id).amin(dim=2)
+                better = tile_t < bt[blk]
+                bt[blk] = torch.where(better, tile_t, bt[blk])
+                bi[blk] = torch.where(better, win, bi[blk])
+        out_t[b0 * RAY_BLOCK:b1 * RAY_BLOCK] = bt.reshape(-1)
+        out_i[b0 * RAY_BLOCK:b1 * RAY_BLOCK] = torch.where(
+            bt < _BIG, bi, -1).reshape(-1)
+    return out_t, out_i
+
+
+# ---------------------------------------------------------------------------
+# any hit (last-bounce occlusion)
+# ---------------------------------------------------------------------------
+
+def find_occluded(scene, org, dir, time, t_bound, t_min=None,
+                  sphere_occluder=None):
+    """Any-hit query: per ray, does a NON-emissive primitive hit with
+    ``t_min <= t < t_bound``? Returns bool [R].
+
+    ``t_bound`` [R]: the closest emissive hit's t (3e38 when the lane hit
+    no emissive prim). Negative t_bound marks dead lanes (reported
+    occluded; callers mask with ``alive``). ``sphere_occluder`` [S] bool:
+    which spheres block light. Every triangle is an occluder, so callers
+    gate on ``scene_no_emissive_tris``.
+    """
+    R = org.shape[0]
+    t_min = _per_ray_t_min(t_min, org)
+    rays, nb = _ray_table(
+        [org[:, 0], org[:, 1], org[:, 2], dir[:, 0], dir[:, 1], dir[:, 2],
+         time, t_min, t_bound], {7: _BIG, 8: -_BIG})
+    # the closest occluder-sphere hit tightens the cull bound: once a
+    # sphere occludes, no triangle cluster can change the answer
+    cull_max = torch.clamp(t_bound, min=0.0)
+    if scene.tri_v0.shape[0] > 0 and scene.sph_c0.shape[0] > 0 \
+            and sphere_occluder is not None:
+        root, valid = sphere_roots(scene, org, dir, time, t_min)
+        valid = valid & sphere_occluder[None, :]
+        so_t = torch.where(valid, root, _BIG).amin(dim=1)
+        cull_max = torch.minimum(cull_max, so_t)
+    tri_pack, lists = _scene_lists(scene, org, dir, t_min, cull_max, nb,
+                                   cull=True)
+    occ = find_any(lists, rays, tri_pack,
+                   _pack_spheres(scene, sphere_occluder),
+                   scene.tri_v0.shape[0])
+    return occ[:R] > 0
+
+
+def find_any(lists, rays, tri_pack, sph_pack, n_tris):
+    """Occlusion flag per ray -> [Rpad] int32 (1 = a valid hit before the
+    ray's bound, or a dead lane).
+
+    Launches the CUDA kernel on CUDA tensors (csrc/find.cu), runs
+    ``find_any_plain`` on CPU tensors.
+
+    Kernel note. Replaces ``_occluded_kernel`` (pallas_find.py:681). The
+    skeleton of ``find_closest``: one block per worklist row, tiles in
+    shared memory. A lane stops testing at its first occluder and its
+    bound drops to -3e38; the block stops when every lane is resolved or
+    no remaining cluster starts before a live bound. Bound: as the
+    closest-hit kernel, but most last-bounce rays die on the ground
+    sphere before any triangle work.
+    """
+    if not rays.is_cuda:
+        return find_any_plain(lists, rays, tri_pack, sph_pack, n_tris)
+    nb = _check_find_args(lists, rays, tri_pack, sph_pack, 9)
+    out = torch.empty(rays.shape[0], dtype=torch.int32, device=rays.device)
+    FIND_ANY.launch(
+        rays.device,
+        _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays),
+        _cuda.ptr(tri_pack), tri_pack.shape[0], tri_pack.shape[2],
+        _cuda.ptr(sph_pack), sph_pack.shape[0], n_tris, RAY_BLOCK, nb,
+        _cuda.ptr(out),
+    )
+    return out
+
+
+def find_any_plain(lists, rays, tri_pack, sph_pack, n_tris):
+    """Plain PyTorch version of ``find_any``, vectorized over ray blocks."""
+    Rpad = rays.shape[0]
+    nb = Rpad // RAY_BLOCK
+    nc = tri_pack.shape[0]
+    out = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
+    for b0, b1 in _block_chunks(nb, tri_pack):
+        rb = rays[b0 * RAY_BLOCK:b1 * RAY_BLOCK]
+        bound = rb[:, 8]
+        tc = _sphere_tc(rb, sph_pack)
+        occ0 = torch.where(tc < bound[:, None], tc, _BIG).amin(dim=1) < _BIG
+        bnd = torch.where(occ0, -_BIG, bound).reshape(b1 - b0, RAY_BLOCK)
+        if n_tris > 0 and nc > 0:
+            rays_b = rb.reshape(b1 - b0, RAY_BLOCK, -1)
+            lst = lists[b0:b1]
+            count = lst[:, 0]
+            active = torch.ones(b1 - b0, dtype=torch.bool, device=rays.device)
+            for k in range(nc):
+                active &= (k < count) & (lst[:, 1 + nc + k] < _worst_bits(bnd))
+                blk = active.nonzero().squeeze(1)
+                if blk.numel() == 0:
+                    break
+                c = lst[blk, 1 + k].long()
+                t, valid = _tile_t(tri_pack[c], rays_b[blk])
+                hit = (valid & (t < bnd[blk][..., None])).any(dim=2)
+                bnd[blk] = torch.where(hit, -_BIG, bnd[blk])
+        out[b0 * RAY_BLOCK:b1 * RAY_BLOCK] = (bnd < 0.0).reshape(-1).to(
+            torch.int32)
+    return out

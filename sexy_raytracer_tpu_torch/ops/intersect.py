@@ -1,0 +1,179 @@
+"""Hit finding: the closest primitive per ray (counterpart of
+``ops/intersect.py:45-298``).
+
+``find_hit`` is a non-differentiable index search returning the winning
+global primitive id (triangles first, then spheres; -1 = miss) and its t.
+Its production path is the cluster-culled CUDA kernel of ``ops/find.py``;
+``find_hit_bruteforce`` is the plain referee with the evaluation order of
+the JAX package's tiled scan.
+
+Semantics (reference model.h:104-181, sphere.h:54-83): triangles are
+back-face culled with ``n.dir <= -eps``, tested with three edge
+half-spaces at the hit point, and accepted for ``t >= t_min``; spheres
+take the nearest root ``>= t_min`` of the half-b quadratic, with the
+center lerped at the ray's time. The true closest hit is kept.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sexy_raytracer_tpu_torch.models.scene import MAT_LIGHT
+from sexy_raytracer_tpu_torch.utils.mathx import EPSILON
+
+T_MIN_DEFAULT = 0.001  # reference main.cpp:39
+
+_LATER = {
+    "bvh": "the BVH referee (ROADMAP.md queue 1, big scenes)",
+    "streamed": "the streamed big-scene kernel (ROADMAP.md queue 2, kernel 8)",
+    "pallas_mxu": "the MXU comparison kernel (ROADMAP.md queue 2, kernel 9)",
+}
+
+
+def _per_ray_t_min(t_min, org):
+    R = org.shape[0]
+    if t_min is None:
+        t_min = T_MIN_DEFAULT
+    if not torch.is_tensor(t_min) or t_min.ndim == 0:
+        return torch.full((R,), float(t_min), dtype=torch.float32,
+                          device=org.device)
+    return t_min.to(torch.float32)
+
+
+def sphere_center(scene, s_idx, time):
+    """Moving-sphere center at ray time (reference sphere.h:47-52)."""
+    c0 = scene.sph_c0[s_idx]
+    c1 = scene.sph_c1[s_idx]
+    t0 = scene.sph_t0[s_idx]
+    t1 = scene.sph_t1[s_idx]
+    moving = torch.any(c0 != c1, dim=-1)
+    denom = torch.where(t1 == t0, 1.0, t1 - t0)
+    frac = (time - t0) / denom
+    return torch.where(moving[..., None], c0 + frac[..., None] * (c1 - c0), c0)
+
+
+def _tri_candidates(scene, org, dir, t_min, tile):
+    """Closest valid triangle per ray, tile by tile -> (t [R], idx [R])."""
+    T = scene.tri_v0.shape[0]
+    R = org.shape[0]
+    best_t = torch.full((R,), float("inf"), device=org.device)
+    best_i = torch.full((R,), -1, dtype=torch.int32, device=org.device)
+    ox, oy, oz = org[:, 0:1], org[:, 1:2], org[:, 2:3]
+    dx, dy, dz = dir[:, 0:1], dir[:, 1:2], dir[:, 2:3]
+    for s in range(0, T, tile):
+        n = scene.tri_n[s:s + tile]
+        d = scene.tri_d[s:s + tile]
+        q = scene.tri_q[s:s + tile]
+        c = scene.tri_c[s:s + tile]
+        # component-explicit, in the order of the find kernels, so that
+        # the paths agree to the rounding on near-edge rays
+        ndir = dx * n[:, 0] + dy * n[:, 1] + dz * n[:, 2]
+        a_n = ox * n[:, 0] + oy * n[:, 1] + oz * n[:, 2] + d
+        plane_ok = ndir <= -EPSILON
+        t = -a_n / torch.where(plane_ok, ndir, -1.0)
+        px = ox + t * dx
+        py = oy + t * dy
+        pz = oz + t * dz
+        ok = plane_ok & (t >= t_min[:, None])
+        for k in range(3):
+            ok &= (q[:, k, 0] * px + q[:, k, 1] * py + q[:, k, 2] * pz
+                   - c[:, k]) >= 0.0
+        t = torch.where(ok, t, float("inf"))
+        tile_best, tile_arg = torch.min(t, dim=1)
+        better = tile_best < best_t
+        best_t = torch.where(better, tile_best, best_t)
+        best_i = torch.where(better, (tile_arg + s).to(torch.int32), best_i)
+    return best_t, best_i
+
+
+def sphere_roots(scene, org, dir, time, t_min, t_max=float("inf")):
+    """Per-(ray, sphere) nearest valid root (reference sphere.h:54-72).
+
+    Returns ``(root [R,S], valid [R,S])``.
+    """
+    S = scene.sph_c0.shape[0]
+    s_idx = torch.arange(S, device=org.device)
+    center = sphere_center(scene, s_idx[None, :], time[:, None])  # [R,S,3]
+    oc = org[:, None, :] - center
+    dr = dir[:, None, :]
+    a = (dir[:, 0] * dir[:, 0] + dir[:, 1] * dir[:, 1]
+         + dir[:, 2] * dir[:, 2])[:, None]
+    half_b = oc[..., 0] * dr[..., 0] + oc[..., 1] * dr[..., 1] \
+        + oc[..., 2] * dr[..., 2]
+    r = scene.sph_radius[None, :]
+    cterm = (oc[..., 0] * oc[..., 0] + oc[..., 1] * oc[..., 1]
+             + oc[..., 2] * oc[..., 2]) - r * r
+    disc = half_b * half_b - a * cterm
+    has = disc >= 0.0
+    sqrtd = torch.sqrt(torch.where(has, disc, 0.0))
+    safe_a = torch.where(a == 0.0, 1.0, a)
+    root0 = (-half_b - sqrtd) / safe_a
+    root1 = (-half_b + sqrtd) / safe_a
+    tmin = t_min[:, None]
+    ok0 = has & (root0 >= tmin) & (root0 <= t_max)
+    ok1 = has & (root1 >= tmin) & (root1 <= t_max)
+    return torch.where(ok0, root0, root1), ok0 | ok1
+
+
+def _sph_candidates(scene, org, dir, time, t_min, only=None):
+    """Closest sphere per ray -> (t [R] (+inf = none), sphere idx [R]).
+    ``only`` [S] bool restricts the candidates."""
+    S = scene.sph_c0.shape[0]
+    R = org.shape[0]
+    if S == 0:
+        return (torch.full((R,), float("inf"), device=org.device),
+                torch.full((R,), -1, dtype=torch.int32, device=org.device))
+    root, valid = sphere_roots(scene, org, dir, time, t_min)
+    if only is not None:
+        valid = valid & only[None, :]
+    best, arg = torch.min(torch.where(valid, root, float("inf")), dim=1)
+    return best, torch.where(torch.isfinite(best), arg.to(torch.int32), -1)
+
+
+def emissive_sphere_hit(scene, org, dir, time, t_min):
+    """Closest EMISSIVE-sphere hit -> ``(t [R] (+inf = none), prim [R])``.
+
+    ``prim`` is the global primitive id (T + sphere index, -1 = none). Used
+    by the last-bounce visibility shortcut (render/integrator.py).
+    """
+    emis = scene.mat_type[scene.sph_mat.long()] == MAT_LIGHT
+    best, arg = _sph_candidates(scene, org, dir, time, t_min, only=emis)
+    T = scene.tri_v0.shape[0]
+    return best, torch.where(arg >= 0, arg + T, -1).to(torch.int32)
+
+
+def find_hit_bruteforce(scene, org, dir, time, t_min=None, tri_tile=512):
+    """All-primitives closest hit. Returns ``(prim_id [R] int32, t [R])``."""
+    t_min = _per_ray_t_min(t_min, org)
+    tri_t, tri_i = _tri_candidates(scene, org, dir, t_min, tri_tile)
+    sph_t, sph_i = _sph_candidates(scene, org, dir, time, t_min)
+    T = scene.tri_v0.shape[0]
+    use_sph = sph_t < tri_t
+    t = torch.where(use_sph, sph_t, tri_t)
+    prim = torch.where(use_sph, T + sph_i, tri_i)
+    prim = torch.where(torch.isfinite(t), prim, -1).to(torch.int32)
+    return prim, t
+
+
+def find_hit(scene, org, dir, time, t_min=None, method="auto"):
+    """Dispatch hit finding -> ``(prim [R] int32, t [R] float32)``.
+
+    ``method``:
+      * ``auto`` / ``pallas`` — the cluster-culled find (ops/find.py): the
+        CUDA kernel on CUDA tensors, its plain version on CPU tensors;
+      * ``pallas_nocull`` — the same with culling disabled (test aid);
+      * ``bruteforce`` — the tiled plain scan.
+    """
+    if method in ("auto", "pallas", "pallas_nocull"):
+        from sexy_raytracer_tpu_torch.ops.find import find_hit_clustered
+
+        return find_hit_clustered(scene, org, dir, time, t_min,
+                                  cull=(method != "pallas_nocull"))
+    if method == "bruteforce":
+        return find_hit_bruteforce(scene, org, dir, time, t_min)
+    if method in _LATER:
+        raise NotImplementedError(
+            f"find_hit(method={method!r}) needs {_LATER[method]}, which is "
+            "not ported yet"
+        )
+    raise ValueError(f"unknown find_hit method {method!r}")

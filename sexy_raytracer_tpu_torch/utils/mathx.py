@@ -1,0 +1,39 @@
+"""Constants and vector helpers (counterpart of ``utils/mathx.py``).
+
+Vectors are ``[..., 3]`` tensors with the component on the last axis.
+Dot products are written out component by component, left to right, so
+that they round like the JAX package's fused kernels and the CUDA kernels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# reference globals.h:14 — epsilon = FLT_EPSILON
+EPSILON = float(np.finfo(np.float32).eps)
+PI = 3.1415926535897932385
+
+
+def deg2rad(degrees):
+    # reference globals.h:26
+    return degrees * PI / 180.0
+
+
+def dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def safe_sqrt(x, eps=1e-24):
+    """``sqrt(max(x, eps))`` (mathx.safe_sqrt)."""
+    return torch.sqrt(torch.clamp(x, min=eps))
+
+
+def unit_vector(v):
+    """Normalize, returning ``v`` unchanged for zero-length inputs."""
+    len2 = dot(v, v)[..., None]
+    return torch.where(len2 == 0.0, v, v / safe_sqrt(len2))
+
+
+def cross(a, b):
+    return torch.linalg.cross(a, b, dim=-1)

@@ -1,0 +1,193 @@
+"""The port's cluster-culled find (plain versions of the CUDA kernels on
+CPU) against the JAX package: the Pallas kernels in interpret mode and the
+brute-force referee, on fuzz and camera wavefronts with dead lanes and
+per-ray t_min."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from sexy_raytracer_tpu.models import presets as jpresets  # noqa: E402
+from sexy_raytracer_tpu.models.scene import SceneBuilder as JBuilder  # noqa: E402
+from sexy_raytracer_tpu.ops import pallas_find as jfind  # noqa: E402
+from sexy_raytracer_tpu.ops import intersect as jint  # noqa: E402
+from sexy_raytracer_tpu.render.camera import Camera as JCamera  # noqa: E402
+from sexy_raytracer_tpu_torch.models import presets as tpresets  # noqa: E402
+from sexy_raytracer_tpu_torch.models.scene import scene_from_numpy  # noqa: E402
+from sexy_raytracer_tpu_torch.ops import find as tfind  # noqa: E402
+from sexy_raytracer_tpu_torch.ops import intersect as tint  # noqa: E402
+from sexy_raytracer_tpu_torch.ops.find import (  # noqa: E402
+    FIND_ANY,
+    FIND_CLOSEST,
+)
+
+BIG = 3.0e38
+
+
+def _near_tie_ok(p1, t1, p0, t0):
+    """tests/test_pallas_find.py:30-46: winners may differ only on near-
+    exact t ties; agreeing hits agree in t."""
+    dis = p1 != p0
+    assert dis.mean() < 0.01, f"{dis.sum()}/{dis.size} winner mismatches"
+    if dis.any():
+        tt1 = np.where(np.isfinite(t1[dis]), t1[dis], 1e30)
+        tt0 = np.where(np.isfinite(t0[dis]), t0[dis], 1e30)
+        near_tie = np.abs(tt1 - tt0) <= 1e-3 * np.minimum(tt1, tt0) + 1e-5
+        assert near_tie.all(), "winner mismatch beyond tie tolerance"
+    agree = (p1 == p0) & (p0 >= 0)
+    np.testing.assert_allclose(t1[agree], t0[agree], rtol=2e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    b = JBuilder()
+    tpresets.add_relief_mesh(b, 15)
+    jpresets._add_ground_and_lights(b)
+    jpresets._add_iron_and_metal(b, "/nonexistent-data-dir")
+    jscene = b.build(build_bvh=False, device=False)
+    return jax.device_put(jscene), scene_from_numpy(jscene)
+
+
+def _fuzz(n, seed):
+    r = np.random.default_rng(seed)
+    org = r.normal(0, 3.0, (n, 3)) + np.array([0.0, 2.5, 1.0])
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    times = r.uniform(0, 1, n)
+    t_min = np.where(r.random(n) < 0.15, BIG, r.uniform(0.001, 0.5, n))
+    return [x.astype(np.float32) for x in (org, d, times, t_min)]
+
+
+def _camera(n, seed):
+    r = np.random.default_rng(seed)
+    cam = JCamera.from_config(jpresets._flagship_camera(), 32 / 24)
+    u = jnp.asarray(r.uniform(0.2, 0.8, n), jnp.float32)
+    v = jnp.asarray(r.uniform(0.1, 0.9, n), jnp.float32)
+    o, d, t = cam.get_rays(u, v, jnp.asarray(r.random((n, 3)), jnp.float32))
+    t_min = np.where(r.random(n) < 0.1, BIG, 0.001)
+    return [np.asarray(x, np.float32) for x in (o, d, t, t_min)]
+
+
+def _both(arrs):
+    return ([jnp.asarray(a) for a in arrs],
+            [torch.from_numpy(np.array(a)) for a in arrs])
+
+
+WAVEFRONTS = {"fuzz": lambda: _fuzz(2048, 3), "camera": lambda: _camera(2048, 5)}
+
+
+@pytest.mark.parametrize("wave", sorted(WAVEFRONTS))
+def test_clustered_matches_pallas_and_bruteforce(scenes, wave):
+    jscene, tscene = scenes
+    (jo, jd, jt, jtm), (to, td, tt, ttm) = _both(WAVEFRONTS[wave]())
+    before = FIND_CLOSEST.launches
+    p_t, t_t = tint.find_hit(tscene, to, td, tt, t_min=ttm)
+    assert FIND_CLOSEST.launches == before   # CPU tensors: the plain version
+    p_t, t_t = p_t.numpy(), t_t.numpy()
+    p_j, t_j = map(np.asarray, jint.find_hit(jscene, jo, jd, jt, t_min=jtm,
+                                             method="pallas"))
+    _near_tie_ok(p_t, t_t, p_j, t_j)
+    p_b, t_b = map(np.asarray, jint.find_hit_bruteforce(jscene, jo, jd, jt,
+                                                        t_min=jtm))
+    _near_tie_ok(p_t, t_t, p_b, t_b)
+    dead = np.asarray(jtm) >= BIG
+    assert (p_t[dead] == -1).all() and np.isinf(t_t[dead]).all()
+    assert (p_t[~dead] >= 0).mean() > 0.3
+    if wave == "camera":
+        assert ((p_t >= 0) & (p_t < tscene.num_triangles)).mean() > 0.2
+
+
+@pytest.mark.parametrize("wave", sorted(WAVEFRONTS))
+def test_bruteforce_and_nocull_match(scenes, wave):
+    jscene, tscene = scenes
+    (jo, jd, jt, jtm), (to, td, tt, ttm) = _both(WAVEFRONTS[wave]())
+    p_b, t_b = map(np.asarray, jint.find_hit_bruteforce(jscene, jo, jd, jt,
+                                                        t_min=jtm))
+    for method in ("bruteforce", "pallas_nocull"):
+        p, t = tint.find_hit(tscene, to, td, tt, t_min=ttm, method=method)
+        _near_tie_ok(p.numpy(), t.numpy(), p_b, t_b)
+
+
+def test_cluster_lists_match(scenes):
+    jscene, tscene = scenes
+    (jo, jd, jt, jtm), (to, td, tt, ttm) = _both(_camera(2048, 9))
+    bound_j, _ = jint._sph_candidates(jscene, jo, jd, jt, jtm)
+    bound_t, _ = tint._sph_candidates(tscene, to, td, tt, ttm)
+    np.testing.assert_allclose(bound_t.numpy(), np.asarray(bound_j),
+                               rtol=1e-5)
+    # the cull itself, on the same bound: exactly the JAX worklists
+    bound_t = torch.from_numpy(np.array(bound_j))
+    lj = np.asarray(jfind.cluster_lists(jo, jd, jtm, jscene.cluster_min,
+                                        jscene.cluster_max, t_max=bound_j,
+                                        ray_block=tfind.RAY_BLOCK))
+    lt = tfind.cluster_lists(to, td, ttm, tscene.cluster_min,
+                             tscene.cluster_max, t_max=bound_t).numpy()
+    assert lt.shape == lj.shape and lt.dtype == np.int32
+    np.testing.assert_array_equal(lt[:, 0], lj[:, 0])
+    nc = tscene.cluster_min.shape[0]
+    for row_t, row_j in zip(lt, lj):
+        k = row_t[0]
+        np.testing.assert_array_equal(row_t[1:1 + k], row_j[1:1 + k])
+        np.testing.assert_array_equal(row_t[1 + nc:1 + nc + k],
+                                      row_j[1 + nc:1 + nc + k])
+    assert lt[:, 0].max() > 0
+
+
+def test_packs_match(scenes):
+    jscene, tscene = scenes
+    jp, nc = jfind._pack_triangles(jscene)
+    tp, tnc = tfind._pack_triangles(tscene)
+    assert nc == tnc
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tfind._pack_spheres(tscene).numpy(),
+                                  np.asarray(jfind._pack_spheres(jscene)))
+
+
+@pytest.mark.parametrize("wave", sorted(WAVEFRONTS))
+def test_occluded_matches_pallas(scenes, wave):
+    """Lane by lane: equal, or the closest hit is a near tie with the
+    emissive bound."""
+    jscene, tscene = scenes
+    (jo, jd, jt, jtm), (to, td, tt, ttm) = _both(WAVEFRONTS[wave]())
+    t_em, _ = jint.emissive_sphere_hit(jscene, jo, jd, jt, jtm)
+    alive = np.asarray(jtm) < BIG
+    t_em = np.asarray(t_em)
+    bound = np.where(alive, np.where(np.isfinite(t_em), t_em, BIG),
+                     -BIG).astype(np.float32)
+    emis = (np.asarray(jscene.mat_type)[np.asarray(jscene.sph_mat)] == 3)
+    occ_j = np.asarray(jfind.find_occluded(
+        jscene, jo, jd, jt, jnp.asarray(bound), t_min=jtm,
+        sphere_occluder=jnp.asarray(~emis)))
+    before = FIND_ANY.launches
+    occ_t = tfind.find_occluded(
+        tscene, to, td, tt, torch.from_numpy(bound), t_min=ttm,
+        sphere_occluder=torch.from_numpy(~emis)).numpy()
+    assert FIND_ANY.launches == before
+    assert occ_t[~alive].all()
+    dis = occ_t != occ_j
+    if dis.any():
+        p, t = jint.find_hit_bruteforce(jscene, jo, jd, jt, t_min=jtm)
+        t = np.asarray(t)[dis]
+        b = bound[dis]
+        assert (np.abs(t - b) <= 1e-3 * np.minimum(t, b) + 1e-5).all()
+    # any-hit contract: occluded exactly when the closest hit is not the
+    # emissive prim at the bound
+    p_em = np.asarray(jint.emissive_sphere_hit(jscene, jo, jd, jt, jtm)[1])
+    p_c = np.asarray(jint.find_hit_bruteforce(jscene, jo, jd, jt,
+                                              t_min=jtm)[0])
+    want = ~((p_c == p_em) & (p_em >= 0)) & (p_c >= 0) | ~alive
+    assert (occ_t == want).mean() > 0.99
+
+
+def test_deferred_methods_raise(scenes):
+    _, tscene = scenes
+    o = torch.zeros((4, 3))
+    for method in ("bvh", "streamed", "pallas_mxu"):
+        with pytest.raises(NotImplementedError):
+            tint.find_hit(tscene, o, o, o[:, 0], method=method)
+    big = torch.zeros((tfind.PER_RAY_CULL_MAX_CLUSTERS + 1, 3))
+    with pytest.raises(NotImplementedError):
+        tfind.cluster_lists(o, o, o[:, 0], big, big)

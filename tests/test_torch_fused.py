@@ -1,0 +1,157 @@
+"""The port's fused hit-record and shade math (the plain versions of the
+CUDA kernels) against the JAX package's, on seeded stacks that cover every
+material type and texture kind. Tolerance atol 2e-5, rtol 1e-5, as
+tests/test_fused.py:61-62: the packages share the formulas but not the
+compiler, so sums, sin/exp2/pow and division may round differently."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from sexy_raytracer_tpu.ops import fused as jfused  # noqa: E402
+from sexy_raytracer_tpu_torch.ops import fused as tfused  # noqa: E402
+
+R = 4096  # one [K, 32, 128] block of the JAX kernels
+TOL = dict(atol=2e-5, rtol=1e-5)
+
+
+def _unit(r, n):
+    v = r.normal(size=(3, n))
+    return v / np.linalg.norm(v, axis=0, keepdims=True)
+
+
+def _hf_stack(seed):
+    """Rays that hit both their triangle row and their sphere row, so that
+    every output row is well conditioned (a missed sphere's record is an
+    arbitrary finite value that rounds differently under each compiler)."""
+    r = np.random.default_rng(seed)
+    org = r.normal(0, 2.0, (3, R))
+    unit = _unit(r, R)
+    dr = unit * r.uniform(0.5, 2.0, R)
+    # triangle around the point 3 units along the ray, facing it
+    n = _unit(r, R)
+    n = np.where(np.sum(n * unit, axis=0) > 0, -n, n)
+    n = n - 0.8 * unit
+    n /= np.linalg.norm(n, axis=0, keepdims=True)
+    e1 = np.cross(n.T, _unit(r, R).T).T
+    e1 /= np.linalg.norm(e1, axis=0, keepdims=True)
+    e2 = np.cross(n.T, e1.T).T
+    hit = org + 3.0 * unit
+    ang = r.uniform(-0.5, 0.5, (3, R)) + np.array([[0.0], [2.1], [4.2]])
+    size = r.uniform(0.3, 1.5, (3, R))
+    tri = [hit + size[k] * (np.cos(ang[k]) * e1 + np.sin(ang[k]) * e2)
+           for k in range(3)]
+    uv = r.uniform(0, 1, (6, R))
+    uv[:, :64] = 0.0  # degenerate uv: the f == 0 guard
+    # sphere ahead of the ray, its center off the ray by < radius / 2
+    rad = r.uniform(0.5, 2.0, (1, R))
+    c0 = org + 5.0 * unit + 0.5 * rad * np.cross(unit.T, _unit(r, R).T).T
+    moving = r.random(R) < 0.5
+    c1 = np.where(moving, c0 + 0.1 * _unit(r, R), c0)
+    st = np.stack([np.zeros(R), np.where(r.random(R) < 0.2, 0.0, 1.0)])
+    t_min = np.full((1, R), 0.001)
+    is_tri = (r.random(R) < 0.5).astype(np.float64)[None]
+    F = np.concatenate([org, dr, r.uniform(0, 1, (1, R)),
+                        np.concatenate(tri), uv, c0, c1, st, rad, t_min,
+                        is_tri, 1.0 - is_tri])
+    assert F.shape[0] == tfused.NHF
+    return F.astype(np.float32)
+
+
+def _sf_stack(seed):
+    r = np.random.default_rng(seed)
+    cols = [
+        r.normal(0, 2.0, (3, R)),                      # org
+        _unit(r, R) * r.uniform(0.5, 2.0, R),          # dir
+        r.uniform(0, 1, (3, R)),                       # thr
+        r.uniform(0, 1, (3, R)),                       # rad
+        (r.random((1, R)) < 0.8),                      # alive
+        r.normal(0, 2.0, (3, R)),                      # p
+        _unit(r, R), _unit(r, R), _unit(r, R),         # normal tan bitan
+        (r.random((1, R)) < 0.5),                      # front
+        (r.random((1, R)) < 0.85),                     # hit
+        r.uniform(0, 1, (4, R)),                       # base color
+        r.uniform(0, 1, (2, R)),                       # metallic roughness
+        r.uniform(0, 0.5, (1, R)),                     # fuzz
+        r.uniform(1.2, 1.8, (1, R)),                   # ior
+        r.uniform(0, 1, (6, R)),                       # albedo c0 c1
+        r.uniform(0, 10, (6, R)),                      # emit rgb c1
+        r.uniform(0, 1, (4, R)),                       # metal/rough cc
+        r.uniform(0, 255, (6, R)),                     # normal c0 c1
+        r.uniform(0, 255, (8, R)),                     # atlas pack
+        _unit(r, R),                                   # rand unit vector
+        _unit(r, R) * r.uniform(0, 1, R) ** (1 / 3),   # rand unit ball
+        r.uniform(0, 1, (1, R)),                       # rand uniform
+        r.uniform(0, 1, (3, R)),                       # background
+    ]
+    F = np.concatenate([np.asarray(c, np.float64) for c in cols])
+    assert F.shape[0] == tfused.NSF
+    # every material with every texture kind of its slots
+    I = np.stack([
+        r.integers(0, 4, R),            # mtype: pbr metal dielectric light
+        r.integers(0, 4, R),            # albedo kind 0-3
+        r.choice([0, 2, 3], R),         # normal kind
+        r.choice([0, 2, 3], R),         # metal kind
+        r.choice([0, 2, 3], R),         # rough kind
+        r.integers(1, 4, R),            # emit kind 1-3
+    ])
+    return F.astype(np.float32), I.astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hitrec_math_matches(seed):
+    F = _hf_stack(seed)
+    want = np.asarray(jfused.hitrec_math(jnp.asarray(F)))
+    got = tfused.hitrec_math(torch.from_numpy(F)).numpy()
+    assert got.shape == (tfused.NHO, R) and got.dtype == np.float32
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_shade_carry_math_matches(seed):
+    F, I = _sf_stack(seed)
+    assert set(np.unique(I[0])) == {0, 1, 2, 3}
+    want = np.asarray(jfused.shade_carry_math(jnp.asarray(F), jnp.asarray(I)))
+    got = tfused.shade_carry_math(torch.from_numpy(F),
+                                  torch.from_numpy(I)).numpy()
+    assert got.shape == (tfused.NSO, R) and got.dtype == np.float32
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_wrappers_match_jax_kernels():
+    """One call through the JAX Pallas kernels (interpret mode) and the
+    port's wrappers, which take the plain path for CPU tensors."""
+    hf = _hf_stack(2)
+    sf, si = _sf_stack(3)
+    launches = (tfused.HITREC.launches, tfused.SHADE.launches)
+    ho_j = jfused.hitrec_fused(jnp.asarray(hf.reshape(tfused.NHF, -1, 128)))
+    ho_t = tfused.hitrec_fused(torch.from_numpy(hf)).numpy()
+    ho_j = np.asarray(ho_j).reshape(tfused.NHO, R)
+    # a sphere hit within ~1e-3 of a pole takes its tangent from the cross
+    # of two nearly parallel vectors (sphere.h:96-106), which amplifies a
+    # one-ulp difference past the tolerance: compare those lanes' other rows
+    pole = (hf[32] < 0.5) & (1.0 - np.abs(ho_t[4]) < 1e-3)
+    frame = np.zeros(tfused.NHO, bool)
+    frame[6:12] = True
+    keep = ~(frame[:, None] & pole[None, :])
+    assert pole.mean() < 0.01
+    np.testing.assert_allclose(ho_t[keep], ho_j[keep], **TOL)
+    so_j = jfused.shade_carry_fused(
+        jnp.asarray(sf.reshape(tfused.NSF, -1, 128)),
+        jnp.asarray(si.reshape(tfused.NSI, -1, 128)))
+    so_t = tfused.shade_carry_fused(torch.from_numpy(sf),
+                                    torch.from_numpy(si))
+    np.testing.assert_allclose(so_t.numpy(),
+                               np.asarray(so_j).reshape(tfused.NSO, R), **TOL)
+    assert (tfused.HITREC.launches, tfused.SHADE.launches) == launches
+
+
+def test_row_maps_match():
+    for name in ("NHF", "NHO", "NSF", "SF_GF", "SF_PACK", "SF_IOR", "NSI",
+                 "NSO"):
+        assert getattr(tfused, name) == getattr(jfused, name), name
