@@ -1,4 +1,5 @@
-"""sexy-raytracer-tpu on PyTorch + CUDA: the forward render path.
+"""sexy-raytracer-tpu on PyTorch + CUDA: the forward render path and the
+differentiable train step.
 
 A port of ``sexy_raytracer_tpu`` (JAX, Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for Hopper (``csrc/*.cu``). Module names follow

@@ -1,18 +1,35 @@
-// Fused per-bounce kernels for Hopper: the hit record, and shading plus the
-// path-carry update.
+// Fused per-bounce kernels for Hopper: the hit record, shading plus the
+// path-carry update, and the VJP of each.
 //
 // Replace the TPU kernels _hitrec_kernel (sexy_raytracer_tpu/ops/fused.py:442,
-// math hitrec_math :141) and _shade_kernel (fused.py:501, math
-// shade_carry_math :271). The row maps (NHF/NHO, SF_*/NSI/NSO) are the JAX
-// package's; a stack is [K, R] row-major with rays contiguous, the TPU's
-// [K, RB, 128] flattened. One thread per ray: every row read and written is
-// a coalesced 4-byte access across a warp.
+// math hitrec_math :141), _shade_kernel (fused.py:501, math shade_carry_math
+// :271), _hitrec_bwd_kernel (fused.py:446) and _shade_bwd_kernel
+// (fused.py:505). The row maps (NHF/NHO, SF_*/NSI/NSO) are the JAX package's;
+// a stack is [K, R] row-major with rays contiguous, the TPU's [K, RB, 128]
+// flattened. One thread per ray: every row read and written is a coalesced
+// 4-byte access across a warp.
 //
-// Each kernel is a line-by-line transcription of its JAX math, in the same
-// evaluation order. The library is built with -fmad=false and without fast
-// math, so with the same inputs a kernel matches its plain PyTorch version
-// (sexy_raytracer_tpu_torch/ops/fused.py) up to the last bit of sinf, exp2f
-// and powf, which both call from the same CUDA math library.
+// Forward. hit_fwd and shade_fwd are line-by-line transcriptions of the JAX
+// math, in the same evaluation order. The library is built with -fmad=false
+// and without fast math, so with the same inputs a kernel matches its plain
+// PyTorch version (sexy_raytracer_tpu_torch/ops/fused.py) up to the last bit
+// of sinf, exp2f and powf, which both call from the same CUDA math library.
+//
+// Backward. The TPU kernels run jax.vjp inside the kernel body and save no
+// intermediates. The backward kernels here do the same by hand: each thread
+// re-runs hit_fwd / shade_fwd for its ray (the forward intermediates stay in
+// registers), then walks the adjoint in reverse. Bound: device memory, the
+// forward stack, the cotangent and the input cotangent streamed once
+// ((34 + 16 + 34) x 4 B and (75 + 6 + 16 + 75) x 4 B per ray) against a few
+// hundred flops. The adjoint keeps JAX's derivative conventions:
+//   * a select sends its cotangent to the branch that was taken only, so the
+//     sphere solve on a triangle lane never leaks into the result;
+//   * jnp.maximum/minimum/clip split a tie half and half (dmaxn, dminn);
+//   * the guards keep their derivatives: safe_sqrt's clamp, the 1e-20 floor
+//     of the inverse distances, vunit's zero-length pass-through, inv_f's
+//     f == 0 guard, the GGX 1e-12 denominator;
+//   * stop-gradient rows (the triangle uv outputs; alive, front, hit and the
+//     random draws of the shade stack; the 0/1 flags) get a zero cotangent.
 //
 // max/min/clip below propagate NaN like jnp.maximum/minimum/clip, not like
 // fmaxf/fminf, so that a NaN produced upstream is not silently hidden.
@@ -24,7 +41,10 @@ namespace {
 constexpr float EPS = 1.1920928955078125e-07f;  // FLT_EPSILON
 constexpr double PI_D = 3.1415926535897932385;
 constexpr float PI_F = (float)PI_D;
+constexpr float LN2_F = 0.693147180559945309f;
 constexpr int MAT_PBR = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2, MAT_LIGHT = 3;
+constexpr int NHF = 34, NHO = 16, NSF = 75, NSO = 16;
+constexpr int GF = 27, PK = 57;  // shade-stack rows of gf[0] and pack[0]
 
 struct V3 {
   float x, y, z;
@@ -58,6 +78,16 @@ __device__ __forceinline__ float minn(float x, float c) { return x > c ? c : x; 
 __device__ __forceinline__ float clipn(float x, float lo, float hi) {
   return minn(maxn(x, lo), hi);
 }
+// their derivatives in x, with jnp's tie rule: half the cotangent each
+__device__ __forceinline__ float dmaxn(float x, float c) {
+  return x > c ? 1.0f : (x == c ? 0.5f : 0.0f);
+}
+__device__ __forceinline__ float dminn(float x, float c) {
+  return x < c ? 1.0f : (x == c ? 0.5f : 0.0f);
+}
+__device__ __forceinline__ float dclipn(float x, float lo, float hi) {
+  return dmaxn(x, lo) * dminn(maxn(x, lo), hi);
+}
 
 __device__ __forceinline__ float safe_sqrt(float x) {
   return sqrtf(maxn(x, (float)1e-24));
@@ -78,6 +108,54 @@ __device__ __forceinline__ V3 vrefract(V3 uv, V3 n, float ratio) {
   return vadd(perp, par);
 }
 
+// ---- adjoints of the helpers: cotangents of the inputs given g ----------
+
+// d safe_sqrt(x) / dx
+__device__ __forceinline__ float dsafe_sqrt(float x) {
+  return (0.5f / safe_sqrt(x)) * dmaxn(x, (float)1e-24);
+}
+__device__ __forceinline__ V3 vunit_bwd(V3 v, V3 g) {
+  float len2 = vdot(v, v);
+  if (len2 == 0.0f) return g;
+  float s = safe_sqrt(len2);
+  float inv = 1.0f / s;
+  float g_len2 = (-vdot(g, v) / (s * s)) * dsafe_sqrt(len2);
+  return vadd(vscale(inv, g), vscale(2.0f * g_len2, v));
+}
+// c = a x b: a gets b x g, b gets g x a
+__device__ __forceinline__ void vcross_bwd(V3 a, V3 b, V3 g, V3& ga, V3& gb) {
+  ga = vadd(ga, vcross(b, g));
+  gb = vadd(gb, vcross(g, a));
+}
+__device__ __forceinline__ void vreflect_bwd(V3 v, V3 n, V3 g, V3& gv,
+                                             V3& gn) {
+  float k = 2.0f * vdot(v, n);
+  float gk = -vdot(g, n);
+  gv = vadd(gv, vadd(g, vscale(2.0f * gk, n)));
+  gn = vadd(gn, vsub(vscale(2.0f * gk, v), vscale(k, g)));
+}
+// returns the cotangent of ratio
+__device__ __forceinline__ float vrefract_bwd(V3 uv, V3 n, float ratio, V3 g,
+                                              V3& guv, V3& gn) {
+  float x = vdot(n, vneg(uv));
+  float cos_theta = minn(x, 1.0f);
+  V3 w = vadd(uv, vscale(cos_theta, n));
+  V3 perp = vscale(ratio, w);
+  float one_pp = 1.0f - vdot(perp, perp);
+  float sq = safe_sqrt(fabsf(one_pp));
+  // out = perp - sq n
+  gn = vsub(gn, vscale(sq, g));
+  float g_abs = -vdot(g, n) * dsafe_sqrt(fabsf(one_pp));
+  float sgn = one_pp > 0.0f ? 1.0f : (one_pp < 0.0f ? -1.0f : 0.0f);
+  V3 g_perp = vadd(g, vscale(-2.0f * g_abs * sgn, perp));
+  float g_ratio = vdot(g_perp, w);
+  V3 g_w = vscale(ratio, g_perp);
+  float g_x = vdot(g_w, n) * dminn(x, 1.0f);
+  guv = vadd(guv, vsub(g_w, vscale(g_x, n)));
+  gn = vadd(gn, vsub(vscale(cos_theta, g_w), vscale(g_x, uv)));
+  return g_ratio;
+}
+
 struct Rows {
   const float* __restrict__ p;
   int n;
@@ -86,134 +164,315 @@ struct Rows {
   }
 };
 
-// hitrec_math (fused.py:141-246): [NHF = 34, R] -> [NHO = 16, R]
-__global__ void hitrec_kernel(const float* __restrict__ hf, int n,
-                              float* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  Rows F{hf, n};
-  V3 org = v3(F(0, r), F(1, r), F(2, r));
-  V3 dr = v3(F(3, r), F(4, r), F(5, r));
-  float time = F(6, r);
-  V3 v0 = v3(F(7, r), F(8, r), F(9, r));
-  V3 v1 = v3(F(10, r), F(11, r), F(12, r));
-  V3 v2 = v3(F(13, r), F(14, r), F(15, r));
-  float uv0x = F(16, r), uv0y = F(17, r);
-  float uv1x = F(18, r), uv1y = F(19, r);
-  float uv2x = F(20, r), uv2y = F(21, r);
-  V3 c0 = v3(F(22, r), F(23, r), F(24, r));
-  V3 c1 = v3(F(25, r), F(26, r), F(27, r));
-  float st0 = F(28, r), st1 = F(29, r), srad = F(30, r);
-  float t_min = F(31, r);
-  bool is_tri = F(32, r) > 0.5f;
+__device__ __forceinline__ V3 row3(const Rows& F, int k, int r) {
+  return v3(F(k, r), F(k + 1, r), F(k + 2, r));
+}
+
+// ---------------------------------------------------------------------------
+// hit record
+// ---------------------------------------------------------------------------
+
+// hitrec_math (fused.py:141-246) for one ray, with the intermediates the
+// adjoint reads
+struct HitFwd {
+  V3 org, dr, v0, v1, v2, c0, c1;
+  float time, uv0x, uv0y, uv1x, uv1y, uv2x, uv2y, st0, st1, srad, t_min;
+  bool is_tri;
+  // triangle
+  V3 e0, e1, n3, p_t, outward_t, tan_in, bit_in, tangent_t, bitangent_t;
+  float ndir, d, safe, num, t_t, u_t, v_t, duv0x, duv0y, duv1x, duv1y, f,
+      inv_f;
+  bool front_t;
+  // sphere
+  bool moving, first;
+  V3 center, oc, p_s, q, outward_s, bpole, tc, tangent_s, bc, bitangent_s;
+  float sdenom, frac, a, half_b, cterm, disc, sqrtd, safe_a, root0, root1,
+      t_s;
+  bool front_s;
+};
+
+__device__ __forceinline__ HitFwd hit_fwd(const Rows& F, int r) {
+  HitFwd h;
+  h.org = row3(F, 0, r);
+  h.dr = row3(F, 3, r);
+  h.time = F(6, r);
+  h.v0 = row3(F, 7, r);
+  h.v1 = row3(F, 10, r);
+  h.v2 = row3(F, 13, r);
+  h.uv0x = F(16, r); h.uv0y = F(17, r);
+  h.uv1x = F(18, r); h.uv1y = F(19, r);
+  h.uv2x = F(20, r); h.uv2y = F(21, r);
+  h.c0 = row3(F, 22, r);
+  h.c1 = row3(F, 25, r);
+  h.st0 = F(28, r); h.st1 = F(29, r); h.srad = F(30, r);
+  h.t_min = F(31, r);
+  h.is_tri = F(32, r) > 0.5f;
 
   // --- triangle ---
-  V3 n3 = vcross(vsub(v1, v0), vsub(v2, v0));
-  float ndir = vdot(n3, dr);
-  float d = -vdot(n3, v0);
-  float safe = ndir == 0.0f ? -1.0f : ndir;
-  float t_t = -(vdot(n3, org) + d) / safe;
-  V3 p_t = vadd(org, vscale(t_t, dr));
+  h.e0 = vsub(h.v1, h.v0);
+  h.e1 = vsub(h.v2, h.v0);
+  h.n3 = vcross(h.e0, h.e1);
+  h.ndir = vdot(h.n3, h.dr);
+  h.d = -vdot(h.n3, h.v0);
+  h.safe = h.ndir == 0.0f ? -1.0f : h.ndir;
+  h.num = vdot(h.n3, h.org) + h.d;
+  h.t_t = -h.num / h.safe;
+  h.p_t = vadd(h.org, vscale(h.t_t, h.dr));
 
   auto invdist = [&](V3 v) {
-    V3 w = vsub(p_t, v);
+    V3 w = vsub(h.p_t, v);
     float dist = safe_sqrt(vdot(w, w));
     return 1.0f / maxn(dist, (float)1e-20);
   };
-  float r0 = invdist(v0), r1 = invdist(v1), r2 = invdist(v2);
+  float r0 = invdist(h.v0), r1 = invdist(h.v1), r2 = invdist(h.v2);
   float denom = r0 + r1 + r2;
   r0 = r0 / denom;
   r1 = r1 / denom;
   r2 = r2 / denom;
-  float u_t = r0 * uv0x + r1 * uv1x + r2 * uv2x;
-  float v_t = 1.0f - (r0 * uv0y + r1 * uv1y + r2 * uv2y);
+  h.u_t = r0 * h.uv0x + r1 * h.uv1x + r2 * h.uv2x;
+  h.v_t = 1.0f - (r0 * h.uv0y + r1 * h.uv1y + r2 * h.uv2y);
 
-  V3 outward_t = vunit(n3);
-  bool front_t = vdot(dr, outward_t) < 0.0f;
-  V3 normal_t = vwhere(front_t, outward_t, vneg(outward_t));
+  h.outward_t = vunit(h.n3);
+  h.front_t = vdot(h.dr, h.outward_t) < 0.0f;
 
-  V3 e0 = vsub(v1, v0);
-  V3 e1 = vsub(v2, v0);
-  float duv0x = uv1x - uv0x, duv0y = uv1y - uv0y;
-  float duv1x = uv2x - uv0x, duv1y = uv2y - uv0y;
-  float f = duv0x * duv1y - duv1x * duv0y;
-  float inv_f = 1.0f / (f == 0.0f ? EPS : f);
-  V3 tangent_t = vunit(vscale(inv_f, vsub(vscale(duv1y, e0), vscale(duv0y, e1))));
-  V3 bitangent_t =
-      vunit(vscale(inv_f, vadd(vscale(-duv1x, e0), vscale(duv0x, e1))));
+  h.duv0x = h.uv1x - h.uv0x; h.duv0y = h.uv1y - h.uv0y;
+  h.duv1x = h.uv2x - h.uv0x; h.duv1y = h.uv2y - h.uv0y;
+  h.f = h.duv0x * h.duv1y - h.duv1x * h.duv0y;
+  h.inv_f = 1.0f / (h.f == 0.0f ? EPS : h.f);
+  h.tan_in = vscale(h.inv_f, vsub(vscale(h.duv1y, h.e0), vscale(h.duv0y, h.e1)));
+  h.bit_in =
+      vscale(h.inv_f, vadd(vscale(-h.duv1x, h.e0), vscale(h.duv0x, h.e1)));
+  h.tangent_t = vunit(h.tan_in);
+  h.bitangent_t = vunit(h.bit_in);
 
   // --- sphere ---
-  bool moving = (c0.x != c1.x) || (c0.y != c1.y) || (c0.z != c1.z);
-  float sdenom = st1 == st0 ? 1.0f : st1 - st0;
-  float frac = (time - st0) / sdenom;
-  V3 center = vwhere(moving, vadd(c0, vscale(frac, vsub(c1, c0))), c0);
-  V3 oc = vsub(org, center);
-  float a = vdot(dr, dr);
-  float half_b = vdot(oc, dr);
-  float cterm = vdot(oc, oc) - srad * srad;
-  float disc = half_b * half_b - a * cterm;
-  float sqrtd = safe_sqrt(disc);
-  float safe_a = a == 0.0f ? 1.0f : a;
-  float root0 = (-half_b - sqrtd) / safe_a;
-  float root1 = (-half_b + sqrtd) / safe_a;
-  float t_s = root0 >= t_min ? root0 : root1;
-  V3 p_s = vadd(org, vscale(t_s, dr));
-  V3 outward_s = vunit(vsub(p_s, center));
-  bool front_s = vdot(dr, outward_s) < 0.0f;
-  V3 normal_s = vwhere(front_s, outward_s, vneg(outward_s));
+  h.moving = (h.c0.x != h.c1.x) || (h.c0.y != h.c1.y) || (h.c0.z != h.c1.z);
+  h.sdenom = h.st1 == h.st0 ? 1.0f : h.st1 - h.st0;
+  h.frac = (h.time - h.st0) / h.sdenom;
+  h.center =
+      vwhere(h.moving, vadd(h.c0, vscale(h.frac, vsub(h.c1, h.c0))), h.c0);
+  h.oc = vsub(h.org, h.center);
+  h.a = vdot(h.dr, h.dr);
+  h.half_b = vdot(h.oc, h.dr);
+  h.cterm = vdot(h.oc, h.oc) - h.srad * h.srad;
+  h.disc = h.half_b * h.half_b - h.a * h.cterm;
+  h.sqrtd = safe_sqrt(h.disc);
+  h.safe_a = h.a == 0.0f ? 1.0f : h.a;
+  h.root0 = (-h.half_b - h.sqrtd) / h.safe_a;
+  h.root1 = (-h.half_b + h.sqrtd) / h.safe_a;
+  h.first = h.root0 >= h.t_min;
+  h.t_s = h.first ? h.root0 : h.root1;
+  h.p_s = vadd(h.org, vscale(h.t_s, h.dr));
+  h.q = vsub(h.p_s, h.center);
+  h.outward_s = vunit(h.q);  // no /radius (sphere.h:76)
+  h.front_s = vdot(h.dr, h.outward_s) < 0.0f;
 
-  bool near_pole = (1.0f - fabsf(outward_s.y)) < EPS;
-  V3 bpole = near_pole ? v3(0.0f, 0.0f, -1.0f) : v3(0.0f, 1.0f, 0.0f);
-  V3 tangent_s = vunit(vcross(bpole, outward_s));
-  V3 bitangent_s = vunit(vcross(outward_s, tangent_s));
-
-  // --- select ---
-  V3 p = vwhere(is_tri, p_t, p_s);
-  V3 normal = vwhere(is_tri, normal_t, normal_s);
-  V3 tangent = vwhere(is_tri, tangent_t, tangent_s);
-  V3 bitangent = vwhere(is_tri, bitangent_t, bitangent_s);
-  float t = is_tri ? t_t : t_s;
-  bool front = is_tri ? front_t : front_s;
-
-  const float vals[16] = {p.x, p.y, p.z,
-                          normal.x, normal.y, normal.z,
-                          tangent.x, tangent.y, tangent.z,
-                          bitangent.x, bitangent.y, bitangent.z,
-                          u_t, v_t, t, front ? 1.0f : 0.0f};
-#pragma unroll
-  for (int k = 0; k < 16; ++k) out[(size_t)k * n + r] = vals[k];
+  bool near_pole = (1.0f - fabsf(h.outward_s.y)) < EPS;
+  h.bpole = near_pole ? v3(0.0f, 0.0f, -1.0f) : v3(0.0f, 1.0f, 0.0f);
+  h.tc = vcross(h.bpole, h.outward_s);
+  h.tangent_s = vunit(h.tc);
+  h.bc = vcross(h.outward_s, h.tangent_s);
+  h.bitangent_s = vunit(h.bc);
+  return h;
 }
 
-// shade_carry_math (fused.py:271-429): [NSF = 75, R] f32 + [NSI = 6, R] i32
-// -> [NSO = 16, R]
-__global__ void shade_kernel(const float* __restrict__ sf,
-                             const int* __restrict__ si, int n,
-                             float* __restrict__ out) {
-  constexpr int GF = 27, PK = 57;
+// [NHF = 34, R] -> [NHO = 16, R]
+__global__ void hitrec_kernel(const float* __restrict__ hf, int n,
+                              float* __restrict__ out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
-  Rows F{sf, n};
-  V3 org = v3(F(0, r), F(1, r), F(2, r));
-  V3 dr = v3(F(3, r), F(4, r), F(5, r));
-  V3 thr = v3(F(6, r), F(7, r), F(8, r));
-  V3 rad = v3(F(9, r), F(10, r), F(11, r));
-  bool alive = F(12, r) > 0.5f;
-  V3 p = v3(F(13, r), F(14, r), F(15, r));
-  V3 nrm = v3(F(16, r), F(17, r), F(18, r));
-  V3 tan_ = v3(F(19, r), F(20, r), F(21, r));
-  V3 bit = v3(F(22, r), F(23, r), F(24, r));
-  bool front = F(25, r) > 0.5f;
-  bool hit = F(26, r) > 0.5f;
+  const HitFwd h = hit_fwd(Rows{hf, n}, r);
+  const bool t = h.is_tri;
+  V3 normal_t = vwhere(h.front_t, h.outward_t, vneg(h.outward_t));
+  V3 normal_s = vwhere(h.front_s, h.outward_s, vneg(h.outward_s));
+  V3 p = vwhere(t, h.p_t, h.p_s);
+  V3 normal = vwhere(t, normal_t, normal_s);
+  V3 tangent = vwhere(t, h.tangent_t, h.tangent_s);
+  V3 bitangent = vwhere(t, h.bitangent_t, h.bitangent_s);
+  bool front = t ? h.front_t : h.front_s;
+  const float vals[NHO] = {p.x, p.y, p.z,
+                           normal.x, normal.y, normal.z,
+                           tangent.x, tangent.y, tangent.z,
+                           bitangent.x, bitangent.y, bitangent.z,
+                           h.u_t, h.v_t, t ? h.t_t : h.t_s,
+                           front ? 1.0f : 0.0f};
+#pragma unroll
+  for (int k = 0; k < NHO; ++k) out[(size_t)k * n + r] = vals[k];
+}
+
+// VJP of hitrec_math: [NHF, R] forward stack + [NHO, R] cotangent -> [NHF, R]
+__global__ void hitrec_bwd_kernel(const float* __restrict__ hf,
+                                  const float* __restrict__ gout, int n,
+                                  float* __restrict__ dout) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const HitFwd h = hit_fwd(Rows{hf, n}, r);
+  const Rows G{gout, n};
+  // rows 12-13 (triangle uv) are stop-gradient, row 15 (front) is a flag
+  const V3 gp = row3(G, 0, r), gn = row3(G, 3, r), gtan = row3(G, 6, r),
+           gbit = row3(G, 9, r);
+  const float gt = G(14, r);
+  const V3 z = v3(0.0f, 0.0f, 0.0f);
+  V3 g_org = z, g_dr = z, g_v0 = z, g_v1 = z, g_v2 = z, g_c0 = z, g_c1 = z;
+  float g_uv0x = 0.0f, g_uv0y = 0.0f, g_uv1x = 0.0f, g_uv1y = 0.0f,
+        g_uv2x = 0.0f, g_uv2y = 0.0f, g_time = 0.0f, g_st0 = 0.0f,
+        g_st1 = 0.0f, g_srad = 0.0f;
+
+  if (h.is_tri) {
+    // p = org + t dr
+    g_org = gp;
+    float g_t = gt + vdot(gp, h.dr);
+    g_dr = vscale(h.t_t, gp);
+    // t = -num / safe; safe = ndir unless ndir == 0
+    float g_num = -g_t / h.safe;
+    float g_safe = g_t * h.num / (h.safe * h.safe);
+    float g_ndir = h.ndir == 0.0f ? 0.0f : g_safe;
+    // num = n.org + d, d = -n.v0, ndir = n.dr
+    V3 g_n = vadd(vsub(vscale(g_num, h.org), vscale(g_num, h.v0)),
+                  vscale(g_ndir, h.dr));
+    g_org = vadd(g_org, vscale(g_num, h.n3));
+    g_v0 = vscale(-g_num, h.n3);
+    g_dr = vadd(g_dr, vscale(g_ndir, h.n3));
+    // normal = +-vunit(n)
+    g_n = vadd(g_n, vunit_bwd(h.n3, h.front_t ? gn : vneg(gn)));
+    // tangent = vunit(inv_f A), bitangent = vunit(inv_f B)
+    V3 gA = vunit_bwd(h.tan_in, gtan);
+    V3 gB = vunit_bwd(h.bit_in, gbit);
+    V3 A = vsub(vscale(h.duv1y, h.e0), vscale(h.duv0y, h.e1));
+    V3 B = vadd(vscale(-h.duv1x, h.e0), vscale(h.duv0x, h.e1));
+    float g_inv_f = vdot(gA, A) + vdot(gB, B);
+    gA = vscale(h.inv_f, gA);
+    gB = vscale(h.inv_f, gB);
+    V3 g_e0 = vsub(vscale(h.duv1y, gA), vscale(h.duv1x, gB));
+    V3 g_e1 = vsub(vscale(h.duv0x, gB), vscale(h.duv0y, gA));
+    vcross_bwd(h.e0, h.e1, g_n, g_e0, g_e1);  // n = e0 x e1
+    float g_duv1y = vdot(gA, h.e0), g_duv0y = -vdot(gA, h.e1);
+    float g_duv1x = -vdot(gB, h.e0), g_duv0x = vdot(gB, h.e1);
+    // inv_f = 1 / f, unless f == 0 (then the constant EPS)
+    float g_f = h.f == 0.0f ? 0.0f : -g_inv_f / (h.f * h.f);
+    g_duv0x += g_f * h.duv1y;
+    g_duv1y += g_f * h.duv0x;
+    g_duv1x -= g_f * h.duv0y;
+    g_duv0y -= g_f * h.duv1x;
+    g_uv1x = g_duv0x; g_uv1y = g_duv0y;
+    g_uv2x = g_duv1x; g_uv2y = g_duv1y;
+    g_uv0x = -(g_duv0x + g_duv1x);
+    g_uv0y = -(g_duv0y + g_duv1y);
+    // e0 = v1 - v0, e1 = v2 - v0
+    g_v1 = g_e0;
+    g_v2 = g_e1;
+    g_v0 = vsub(g_v0, vadd(g_e0, g_e1));
+  } else {
+    // bitangent = vunit(outward x tangent), tangent = vunit(bpole x outward)
+    V3 g_bc = vunit_bwd(h.bc, gbit);
+    V3 g_out = h.front_s ? gn : vneg(gn);
+    V3 g_tan = gtan;
+    vcross_bwd(h.outward_s, h.tangent_s, g_bc, g_out, g_tan);
+    V3 g_tc = vunit_bwd(h.tc, g_tan);
+    V3 g_bpole = z;
+    vcross_bwd(h.bpole, h.outward_s, g_tc, g_bpole, g_out);
+    // outward = vunit(p - center), p = org + t dr
+    V3 g_q = vunit_bwd(h.q, g_out);
+    V3 g_ps = vadd(gp, g_q);
+    V3 g_center = vneg(g_q);
+    g_org = g_ps;
+    float g_ts = gt + vdot(g_ps, h.dr);
+    g_dr = vscale(h.t_s, g_ps);
+    // t = root0 if root0 >= t_min else root1; roots = (-half_b -+ sqrtd) / a
+    float g_r0 = h.first ? g_ts : 0.0f;
+    float g_r1 = h.first ? 0.0f : g_ts;
+    float g_hb = -(g_r0 + g_r1) / h.safe_a;
+    float g_sq = (g_r1 - g_r0) / h.safe_a;
+    float g_sa = -(g_r0 * h.root0 + g_r1 * h.root1) / h.safe_a;
+    float g_a = h.a == 0.0f ? 0.0f : g_sa;
+    // disc = half_b^2 - a cterm
+    float g_disc = g_sq * dsafe_sqrt(h.disc);
+    g_hb += 2.0f * h.half_b * g_disc;
+    g_a -= h.cterm * g_disc;
+    float g_ct = -h.a * g_disc;
+    // cterm = oc.oc - srad^2, half_b = oc.dr, a = dr.dr
+    V3 g_oc = vadd(vscale(2.0f * g_ct, h.oc), vscale(g_hb, h.dr));
+    g_srad = -2.0f * h.srad * g_ct;
+    g_dr = vadd(g_dr, vadd(vscale(g_hb, h.oc), vscale(2.0f * g_a, h.dr)));
+    // oc = org - center
+    g_org = vadd(g_org, g_oc);
+    g_center = vsub(g_center, g_oc);
+    if (h.moving) {
+      // center = c0 + frac (c1 - c0), frac = (time - st0) / sdenom
+      g_c0 = vsub(g_center, vscale(h.frac, g_center));
+      g_c1 = vscale(h.frac, g_center);
+      float g_frac = vdot(g_center, vsub(h.c1, h.c0));
+      g_time = g_frac / h.sdenom;
+      g_st0 = -g_frac / h.sdenom;
+      if (h.st1 != h.st0) {
+        float g_sden = -g_frac * h.frac / h.sdenom;
+        g_st1 = g_sden;
+        g_st0 -= g_sden;
+      }
+    } else {
+      g_c0 = g_center;
+    }
+  }
+
+  const float vals[NHF] = {
+      g_org.x, g_org.y, g_org.z, g_dr.x, g_dr.y, g_dr.z, g_time,
+      g_v0.x, g_v0.y, g_v0.z, g_v1.x, g_v1.y, g_v1.z, g_v2.x, g_v2.y, g_v2.z,
+      g_uv0x, g_uv0y, g_uv1x, g_uv1y, g_uv2x, g_uv2y,
+      g_c0.x, g_c0.y, g_c0.z, g_c1.x, g_c1.y, g_c1.z, g_st0, g_st1, g_srad,
+      0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < NHF; ++k) dout[(size_t)k * n + r] = vals[k];
+}
+
+// ---------------------------------------------------------------------------
+// shade + carry update
+// ---------------------------------------------------------------------------
+
+// shade_carry_math (fused.py:271-429) for one ray, with the intermediates
+// the adjoint reads
+struct ShadeFwd {
+  V3 org, dr, thr, rad, p, nrm, tan_, bit, ruv, rball, bg;
+  bool alive, front, hit, odd;
+  int mtype, ak, nk, mk, rk, ek;
+  // PBR
+  V3 base_rgb, attenuation, nm, world_nm, normal, scatter_in, scatter, view,
+      hsum, half, f0, fres, diffuse, spec, pbr_att;
+  float m2, m, r2, rr, n_dot_l, n_dot_h, h_dot_v, n_dot_v, alpha2, q, den,
+      dterm, hv_lin, power, rp1, k, gaf_l, gaf_v, gterm, sden, sc;
+  // metal and dielectric
+  V3 ud, met_dir, die_dir;
+  float ior, ratio;
+  bool do_reflect;
+  // result
+  V3 emitted, att, sdir;
+  bool miss, takes, alive_next;
+};
+
+__device__ __forceinline__ ShadeFwd shade_fwd(const Rows& F,
+                                              const int* __restrict__ si,
+                                              int n, int r) {
+  ShadeFwd s;
+  s.org = row3(F, 0, r);
+  s.dr = row3(F, 3, r);
+  s.thr = row3(F, 6, r);
+  s.rad = row3(F, 9, r);
+  s.alive = F(12, r) > 0.5f;
+  s.p = row3(F, 13, r);
+  s.nrm = row3(F, 16, r);
+  s.tan_ = row3(F, 19, r);
+  s.bit = row3(F, 22, r);
+  s.front = F(25, r) > 0.5f;
+  s.hit = F(26, r) > 0.5f;
   auto g = [&](int k) { return F(GF + k, r); };
   auto pk = [&](int k) { return F(PK + k, r); };
-  V3 ruv = v3(F(65, r), F(66, r), F(67, r));
-  V3 rball = v3(F(68, r), F(69, r), F(70, r));
+  s.ruv = row3(F, 65, r);
+  s.rball = row3(F, 68, r);
   float runi = F(71, r);
-  V3 bg = v3(F(72, r), F(73, r), F(74, r));
-  const int mtype = si[r], ak = si[n + r], nk = si[2 * n + r];
-  const int mk = si[3 * n + r], rk = si[4 * n + r], ek = si[5 * n + r];
+  s.bg = row3(F, 72, r);
+  s.mtype = si[r]; s.ak = si[n + r]; s.nk = si[2 * n + r];
+  s.mk = si[3 * n + r]; s.rk = si[4 * n + r]; s.ek = si[5 * n + r];
 
-  V3 base_rgb = v3(g(0), g(1), g(2));
+  s.base_rgb = v3(g(0), g(1), g(2));
   V3 albedo_c0 = v3(g(8), g(9), g(10));
   V3 albedo_c1 = v3(g(11), g(12), g(13));
   V3 emit_rgb = v3(g(14), g(15), g(16));
@@ -224,119 +483,322 @@ __global__ void shade_kernel(const float* __restrict__ sf,
   const V3 one3 = v3(1.0f, 1.0f, 1.0f);
 
   // checker parity shared by every procedural slot (texture.h:42-48)
-  bool odd = (sinf(10.0f * p.x) * sinf(10.0f * p.y) * sinf(10.0f * p.z)) < 0.0f;
+  s.odd = (sinf(10.0f * s.p.x) * sinf(10.0f * s.p.y) * sinf(10.0f * s.p.z)) <
+          0.0f;
 
   // ---- PBR ----
-  V3 checker = vscale(255.0f, vwhere(odd, albedo_c1, albedo_c0));
-  V3 map_val = vwhere(ak == 1, albedo_c0, v3(pk(0), pk(1), pk(2)));
-  map_val = vwhere(ak == 2, checker, map_val);
-  V3 attenuation =
-      vwhere(ak == 0, base_rgb, vscale((float)(1.0 / 255.0), map_val));
+  V3 checker = vscale(255.0f, vwhere(s.odd, albedo_c1, albedo_c0));
+  V3 map_val = vwhere(s.ak == 1, albedo_c0, v3(pk(0), pk(1), pk(2)));
+  map_val = vwhere(s.ak == 2, checker, map_val);
+  s.attenuation =
+      vwhere(s.ak == 0, s.base_rgb, vscale((float)(1.0 / 255.0), map_val));
 
-  V3 nm_val = vwhere(nk == 2, vwhere(odd, normal_c1, normal_c0),
+  V3 nm_val = vwhere(s.nk == 2, vwhere(s.odd, normal_c1, normal_c0),
                      v3(pk(3), pk(4), pk(5)));
-  V3 nm = vscale(1.0f / 128.0f, vsub(nm_val, v3(128.0f, 128.0f, 128.0f)));
-  V3 world_nm = vadd(vadd(vscale(nm.x, tan_), vscale(nm.y, bit)),
-                     vscale(nm.z, nrm));
-  V3 normal = vwhere(nk != 0, vunit(world_nm), nrm);
+  s.nm = vscale(1.0f / 128.0f, vsub(nm_val, v3(128.0f, 128.0f, 128.0f)));
+  s.world_nm = vadd(vadd(vscale(s.nm.x, s.tan_), vscale(s.nm.y, s.bit)),
+                    vscale(s.nm.z, s.nrm));
+  s.normal = vwhere(s.nk != 0, vunit(s.world_nm), s.nrm);
 
   float metallic = g(4), roughness = g(5);
-  float m_ck = odd ? g(21) : g(20);
-  float m = mk == 3 ? pk(6) / 255.0f : metallic;
-  m = clipn(mk == 2 ? m_ck : m, 0.0f, 1.0f);
-  m = mk == 0 ? metallic : m;
-  float r_ck = odd ? g(23) : g(22);
-  float rr = rk == 3 ? pk(7) / 255.0f : roughness;
-  rr = clipn(rk == 2 ? r_ck : rr, 0.0f, 1.0f);
-  rr = rk == 0 ? roughness : rr;
+  float m_ck = s.odd ? g(21) : g(20);
+  float m1 = s.mk == 3 ? pk(6) / 255.0f : metallic;
+  s.m2 = s.mk == 2 ? m_ck : m1;
+  s.m = s.mk == 0 ? metallic : clipn(s.m2, 0.0f, 1.0f);
+  float r_ck = s.odd ? g(23) : g(22);
+  float r1 = s.rk == 3 ? pk(7) / 255.0f : roughness;
+  s.r2 = s.rk == 2 ? r_ck : r1;
+  s.rr = s.rk == 0 ? roughness : clipn(s.r2, 0.0f, 1.0f);
 
-  V3 scatter = vadd(normal, ruv);
-  bool degen = (fabsf(scatter.x) < (float)1e-8) && (fabsf(scatter.y) < (float)1e-8) &&
+  V3 scatter = vadd(s.normal, s.ruv);
+  bool degen = (fabsf(scatter.x) < (float)1e-8) &&
+               (fabsf(scatter.y) < (float)1e-8) &&
                (fabsf(scatter.z) < (float)1e-8);
-  scatter = vunit(vwhere(degen, normal, scatter));
+  s.scatter_in = vwhere(degen, s.normal, scatter);
+  s.scatter = vunit(s.scatter_in);
 
-  V3 view = vneg(vunit(dr));
-  V3 half = vunit(vadd(scatter, view));
-  float n_dot_l = maxn(vdot(normal, scatter), 0.0f);
-  float n_dot_h = maxn(vdot(normal, half), 0.0f);
-  float h_dot_v = maxn(vdot(half, view), 0.0f);
-  float n_dot_v = maxn(vdot(normal, view), 0.0f);
+  s.ud = vunit(s.dr);
+  s.view = vneg(s.ud);
+  s.hsum = vadd(s.scatter, s.view);
+  s.half = vunit(s.hsum);
+  s.n_dot_l = maxn(vdot(s.normal, s.scatter), 0.0f);
+  s.n_dot_h = maxn(vdot(s.normal, s.half), 0.0f);
+  s.h_dot_v = maxn(vdot(s.half, s.view), 0.0f);
+  s.n_dot_v = maxn(vdot(s.normal, s.view), 0.0f);
 
-  V3 f0 = vadd(vscale(1.0f - m, v3((float)0.4, (float)0.4, (float)0.4)), vscale(m, base_rgb));
-  float alpha2 = (rr * rr) * (rr * rr);
-  float q = n_dot_h * n_dot_h * (alpha2 - 1.0f) + 1.0f;
-  float dterm = alpha2 / maxn(PI_F * (q * q), (float)1e-12);
-  float power = exp2f(((float)-5.55473 * h_dot_v - (float)6.98316) * h_dot_v);
-  V3 fres = vadd(f0, vscale(power, vsub(one3, f0)));
-  float rp1 = rr + 1.0f;
-  float k = (rp1 * rp1) / 8.0f;
-  float gaf_l = n_dot_l / (n_dot_l * (1.0f - k) + k);
-  float gaf_v = n_dot_v / (n_dot_v * (1.0f - k) + k);
-  float gterm = gaf_l * gaf_v;
+  s.f0 = vadd(vscale(1.0f - s.m, v3((float)0.4, (float)0.4, (float)0.4)),
+              vscale(s.m, s.base_rgb));
+  s.alpha2 = (s.rr * s.rr) * (s.rr * s.rr);
+  s.q = s.n_dot_h * s.n_dot_h * (s.alpha2 - 1.0f) + 1.0f;
+  s.den = maxn(PI_F * (s.q * s.q), (float)1e-12);
+  s.dterm = s.alpha2 / s.den;
+  s.hv_lin = (float)-5.55473 * s.h_dot_v - (float)6.98316;
+  s.power = exp2f(s.hv_lin * s.h_dot_v);
+  s.fres = vadd(s.f0, vscale(s.power, vsub(one3, s.f0)));
+  s.rp1 = s.rr + 1.0f;
+  s.k = (s.rp1 * s.rp1) / 8.0f;
+  s.gaf_l = s.n_dot_l / (s.n_dot_l * (1.0f - s.k) + s.k);
+  s.gaf_v = s.n_dot_v / (s.n_dot_v * (1.0f - s.k) + s.k);
+  s.gterm = s.gaf_l * s.gaf_v;
 
-  V3 diffuse = vmul(vmul(vscale((float)(1.0 / PI_D), attenuation),
-                         vsub(one3, fres)),
-                    vscale(1.0f - m, base_rgb));
-  V3 spec = vscale(dterm * gterm / (4.0f * n_dot_v * n_dot_l + EPS), fres);
-  V3 pbr_att = vscale(n_dot_l, vadd(diffuse, spec));
-  V3 pbr_dir = scatter;
+  s.diffuse = vmul(vmul(vscale((float)(1.0 / PI_D), s.attenuation),
+                        vsub(one3, s.fres)),
+                   vscale(1.0f - s.m, s.base_rgb));
+  s.sden = 4.0f * s.n_dot_v * s.n_dot_l + EPS;
+  s.sc = s.dterm * s.gterm / s.sden;
+  s.spec = vscale(s.sc, s.fres);
+  s.pbr_att = vscale(s.n_dot_l, vadd(s.diffuse, s.spec));
 
   // ---- metal ----
   float fuzz = g(6);
-  V3 reflected = vreflect(vunit(dr), nrm);
-  V3 met_dir = vadd(reflected, vscale(fuzz, rball));
-  bool met_ok = vdot(met_dir, nrm) > 0.0f;
-  V3 met_att = base_rgb;
+  s.met_dir = vadd(vreflect(s.ud, s.nrm), vscale(fuzz, s.rball));
+  bool met_ok = vdot(s.met_dir, s.nrm) > 0.0f;
 
   // ---- dielectric ----
-  float ior = g(7);
-  float ratio = front ? 1.0f / ior : ior;
-  V3 ud = vunit(dr);
-  float cos_t = minn(vdot(nrm, vneg(ud)), 1.0f);
+  s.ior = g(7);
+  s.ratio = s.front ? 1.0f / s.ior : s.ior;
+  float cos_t = minn(vdot(s.nrm, vneg(s.ud)), 1.0f);
   float sin_t = sqrtf(maxn(1.0f - cos_t * cos_t, 0.0f));
-  bool cannot = ratio * sin_t > 1.0f;
-  float r0q = (1.0f - ratio) / (1.0f + ratio);
+  bool cannot = s.ratio * sin_t > 1.0f;
+  float r0q = (1.0f - s.ratio) / (1.0f + s.ratio);
   float r0c = r0q * r0q;
   float x = 1.0f - cos_t;
   float x5 = x * ((x * x) * (x * x));  // lax.integer_pow(x, 5)
   float reflectance = r0c + (1.0f - r0c) * x5;
-  bool do_reflect = cannot || (reflectance > runi);
-  V3 die_dir = vwhere(do_reflect, vreflect(ud, nrm), vrefract(ud, nrm, ratio));
+  s.do_reflect = cannot || (reflectance > runi);
+  s.die_dir = vwhere(s.do_reflect, vreflect(s.ud, s.nrm),
+                     vrefract(s.ud, s.nrm, s.ratio));
 
   // ---- diffuseLight emitted ----
-  V3 emit_val = vwhere(ek == 2, vwhere(odd, emit_c1, emit_rgb),
-                       vwhere(ek == 3, v3(pk(0), pk(1), pk(2)), emit_rgb));
-  V3 emitted = vwhere(mtype == MAT_LIGHT, emit_val, zero3);
+  V3 emit_val = vwhere(s.ek == 2, vwhere(s.odd, emit_c1, emit_rgb),
+                       vwhere(s.ek == 3, v3(pk(0), pk(1), pk(2)), emit_rgb));
+  s.emitted = vwhere(s.mtype == MAT_LIGHT, emit_val, zero3);
 
   // ---- select by material ----
-  V3 att = vwhere(mtype == MAT_PBR, pbr_att, zero3);
-  att = vwhere(mtype == MAT_METAL, met_att, att);
-  att = vwhere(mtype == MAT_DIELECTRIC, one3, att);
-  V3 sdir = vwhere(mtype == MAT_PBR, pbr_dir, dr);
-  sdir = vwhere(mtype == MAT_METAL, met_dir, sdir);
-  sdir = vwhere(mtype == MAT_DIELECTRIC, die_dir, sdir);
-  bool scattered = ((mtype == MAT_PBR) || ((mtype == MAT_METAL) && met_ok) ||
-                    (mtype == MAT_DIELECTRIC)) &&
-                   hit;
+  V3 att = vwhere(s.mtype == MAT_PBR, s.pbr_att, zero3);
+  att = vwhere(s.mtype == MAT_METAL, s.base_rgb, att);
+  s.att = vwhere(s.mtype == MAT_DIELECTRIC, one3, att);
+  V3 sdir = vwhere(s.mtype == MAT_PBR, s.scatter, s.dr);
+  sdir = vwhere(s.mtype == MAT_METAL, s.met_dir, sdir);
+  s.sdir = vwhere(s.mtype == MAT_DIELECTRIC, s.die_dir, sdir);
+  bool scattered = ((s.mtype == MAT_PBR) || ((s.mtype == MAT_METAL) && met_ok) ||
+                    (s.mtype == MAT_DIELECTRIC)) &&
+                   s.hit;
+
+  s.miss = s.alive && !s.hit;
+  s.takes = s.alive && s.hit;
+  s.alive_next = s.alive && s.hit && scattered;
+  return s;
+}
+
+// [NSF = 75, R] f32 + [NSI = 6, R] i32 -> [NSO = 16, R]
+__global__ void shade_kernel(const float* __restrict__ sf,
+                             const int* __restrict__ si, int n,
+                             float* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const ShadeFwd s = shade_fwd(Rows{sf, n}, si, n, r);
+  const V3 zero3 = v3(0.0f, 0.0f, 0.0f);
+  V3 rad = vadd(s.rad, vwhere(s.miss, vmul(s.thr, s.bg), zero3));
+  rad = vadd(rad, vwhere(s.takes, vmul(s.thr, s.emitted), zero3));
+  V3 thr = vwhere(s.alive_next, vmul(s.thr, s.att), s.thr);
+  V3 org = vwhere(s.alive_next, s.p, s.org);
+  V3 dr = vwhere(s.alive_next, s.sdir, s.dr);
+  const float vals[NSO] = {org.x, org.y, org.z, dr.x, dr.y, dr.z,
+                           thr.x, thr.y, thr.z, rad.x, rad.y, rad.z,
+                           s.alive_next ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int kk = 0; kk < NSO; ++kk) out[(size_t)kk * n + r] = vals[kk];
+}
+
+__device__ __forceinline__ void add3(float* d, int row, V3 v) {
+  d[row] += v.x;
+  d[row + 1] += v.y;
+  d[row + 2] += v.z;
+}
+
+// VJP of shade_carry_math in its f32 rows: [NSF, R] forward stack, [NSI, R]
+// int rows and [NSO, R] cotangent -> [NSF, R]
+__global__ void shade_bwd_kernel(const float* __restrict__ sf,
+                                 const int* __restrict__ si,
+                                 const float* __restrict__ gout, int n,
+                                 float* __restrict__ dout) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const ShadeFwd s = shade_fwd(Rows{sf, n}, si, n, r);
+  const Rows G{gout, n};
+  const V3 z = v3(0.0f, 0.0f, 0.0f);
+  float d[NSF];
+#pragma unroll
+  for (int kk = 0; kk < NSF; ++kk) d[kk] = 0.0f;
 
   // ---- carry update ----
-  bool miss = alive && !hit;
-  bool takes = alive && hit;
-  rad = vadd(rad, vwhere(miss, vmul(thr, bg), zero3));
-  rad = vadd(rad, vwhere(takes, vmul(thr, emitted), zero3));
-  bool alive_next = alive && hit && scattered;
-  thr = vwhere(alive_next, vmul(thr, att), thr);
-  org = vwhere(alive_next, p, org);
-  dr = vwhere(alive_next, sdir, dr);
+  const V3 G_org = row3(G, 0, r), G_dr = row3(G, 3, r),
+           G_thr = row3(G, 6, r), G_rad = row3(G, 9, r);
+  V3 g_org = s.alive_next ? z : G_org;
+  V3 g_p = s.alive_next ? G_org : z;
+  V3 g_dr = s.alive_next ? z : G_dr;
+  V3 g_sdir = s.alive_next ? G_dr : z;
+  V3 g_thr = s.alive_next ? vmul(G_thr, s.att) : G_thr;
+  V3 g_att = s.alive_next ? vmul(G_thr, s.thr) : z;
+  V3 g_emitted = z, g_bg = z;
+  if (s.miss) {
+    g_thr = vadd(g_thr, vmul(G_rad, s.bg));
+    g_bg = vmul(G_rad, s.thr);
+  }
+  if (s.takes) {
+    g_thr = vadd(g_thr, vmul(G_rad, s.emitted));
+    g_emitted = vmul(G_rad, s.thr);
+  }
 
-  const float vals[16] = {org.x, org.y, org.z, dr.x, dr.y, dr.z,
-                          thr.x, thr.y, thr.z, rad.x, rad.y, rad.z,
-                          alive_next ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f};
+  // ---- select by material ----
+  V3 g_base = z, g_ud = z, g_nrm = z;
+  if (s.mtype == MAT_LIGHT) {
+    if (s.ek == 2) add3(d, GF + (s.odd ? 17 : 14), g_emitted);
+    else if (s.ek == 3) add3(d, PK, g_emitted);
+    else add3(d, GF + 14, g_emitted);
+  }
+  if (s.mtype == MAT_METAL) {
+    // att = base_rgb, sdir = reflect(ud, nrm) + fuzz rball
+    g_base = g_att;
+    vreflect_bwd(s.ud, s.nrm, g_sdir, g_ud, g_nrm);
+    d[GF + 6] += vdot(g_sdir, s.rball);
+  } else if (s.mtype == MAT_DIELECTRIC) {
+    if (s.do_reflect) {
+      vreflect_bwd(s.ud, s.nrm, g_sdir, g_ud, g_nrm);
+    } else {
+      float g_ratio = vrefract_bwd(s.ud, s.nrm, s.ratio, g_sdir, g_ud, g_nrm);
+      d[GF + 7] += s.front ? -g_ratio / (s.ior * s.ior) : g_ratio;
+    }
+  } else if (s.mtype != MAT_PBR) {
+    g_dr = vadd(g_dr, g_sdir);  // sdir = dr
+  }
+
+  if (s.mtype == MAT_PBR) {
+    const V3 one3 = v3(1.0f, 1.0f, 1.0f);
+    // pbr_att = n_dot_l (diffuse + spec)
+    float g_ndl = vdot(g_att, vadd(s.diffuse, s.spec));
+    V3 g_S = vscale(s.n_dot_l, g_att);
+    // spec = sc fres, sc = (dterm gterm) / sden, sden = (4 ndv) ndl + EPS
+    float g_sc = vdot(g_S, s.fres);
+    V3 g_fres = vscale(s.sc, g_S);
+    float g_dg = g_sc / s.sden;
+    float g_sden = -g_sc * s.sc / s.sden;
+    float g_dterm = g_dg * s.gterm;
+    float g_gterm = g_dg * s.dterm;
+    float g_ndv = g_sden * 4.0f * s.n_dot_l;
+    g_ndl += g_sden * (4.0f * s.n_dot_v);
+    // diffuse = ((1/pi) attenuation) (1 - fres) ((1 - m) base)
+    V3 A1 = vscale((float)(1.0 / PI_D), s.attenuation);
+    V3 B1 = vsub(one3, s.fres);
+    V3 C1 = vscale(1.0f - s.m, s.base_rgb);
+    V3 g_atten = vscale((float)(1.0 / PI_D), vmul(g_S, vmul(B1, C1)));
+    g_fres = vsub(g_fres, vmul(g_S, vmul(A1, C1)));
+    V3 g_C1 = vmul(g_S, vmul(A1, B1));
+    float g_m = -vdot(g_C1, s.base_rgb);
+    g_base = vadd(g_base, vscale(1.0f - s.m, g_C1));
+    // gterm = gaf_l gaf_v, gaf = x / (x (1 - k) + k)
+    float g_gl = g_gterm * s.gaf_v, g_gv = g_gterm * s.gaf_l;
+    float den_l = s.n_dot_l * (1.0f - s.k) + s.k;
+    float den_v = s.n_dot_v * (1.0f - s.k) + s.k;
+    float g_dl = -g_gl * s.gaf_l / den_l;
+    float g_dv = -g_gv * s.gaf_v / den_v;
+    g_ndl += g_gl / den_l + g_dl * (1.0f - s.k);
+    g_ndv += g_gv / den_v + g_dv * (1.0f - s.k);
+    float g_k = g_dl * (1.0f - s.n_dot_l) + g_dv * (1.0f - s.n_dot_v);
+    float g_rr = g_k * s.rp1 / 4.0f;  // k = rp1^2 / 8
+    // fres = f0 + power (1 - f0), power = 2^((a h + b) h)
+    V3 g_f0 = vscale(1.0f - s.power, g_fres);
+    float g_power = vdot(g_fres, vsub(one3, s.f0));
+    float g_ex = g_power * s.power * LN2_F;
+    float g_hdv = g_ex * s.hv_lin + g_ex * s.h_dot_v * (float)-5.55473;
+    // dterm = alpha2 / max(pi q^2, 1e-12), q = ndh^2 (alpha2 - 1) + 1
+    float g_alpha2 = g_dterm / s.den;
+    float g_den = -g_dterm * s.dterm / s.den;
+    float g_q = g_den * PI_F * dmaxn(PI_F * (s.q * s.q), (float)1e-12) *
+                (2.0f * s.q);
+    float g_ndh = g_q * 2.0f * s.n_dot_h * (s.alpha2 - 1.0f);
+    g_alpha2 += g_q * s.n_dot_h * s.n_dot_h;
+    g_rr += g_alpha2 * 4.0f * (s.rr * s.rr * s.rr);
+    // f0 = (1 - m) 0.4 + m base
+    g_m += vdot(g_f0, vsub(s.base_rgb, v3((float)0.4, (float)0.4, (float)0.4)));
+    g_base = vadd(g_base, vscale(s.m, g_f0));
+    // the four clamped dot products
+    g_ndl *= dmaxn(vdot(s.normal, s.scatter), 0.0f);
+    g_ndh *= dmaxn(vdot(s.normal, s.half), 0.0f);
+    g_hdv *= dmaxn(vdot(s.half, s.view), 0.0f);
+    g_ndv *= dmaxn(vdot(s.normal, s.view), 0.0f);
+    V3 g_normal = vadd(vadd(vscale(g_ndl, s.scatter), vscale(g_ndh, s.half)),
+                       vscale(g_ndv, s.view));
+    V3 g_scatter = vadd(g_sdir, vscale(g_ndl, s.normal));
+    V3 g_half = vadd(vscale(g_ndh, s.normal), vscale(g_hdv, s.view));
+    V3 g_view = vadd(vscale(g_hdv, s.half), vscale(g_ndv, s.normal));
+    // half = vunit(scatter + view), view = -ud, scatter = vunit(scatter_in)
+    V3 g_hsum = vunit_bwd(s.hsum, g_half);
+    g_scatter = vadd(g_scatter, g_hsum);
+    g_view = vadd(g_view, g_hsum);
+    g_ud = vsub(g_ud, g_view);
+    // scatter_in = normal (+ ruv, a stop-gradient draw)
+    g_normal = vadd(g_normal, vunit_bwd(s.scatter_in, g_scatter));
+    // normal = vunit(world_nm) where a normal map is set, else nrm
+    if (s.nk != 0) {
+      V3 g_wn = vunit_bwd(s.world_nm, g_normal);
+      add3(d, 19, vscale(s.nm.x, g_wn));
+      add3(d, 22, vscale(s.nm.y, g_wn));
+      g_nrm = vadd(g_nrm, vscale(s.nm.z, g_wn));
+      V3 g_nmval = vscale(1.0f / 128.0f,
+                          v3(vdot(g_wn, s.tan_), vdot(g_wn, s.bit),
+                             vdot(g_wn, s.nrm)));
+      if (s.nk == 2) add3(d, GF + (s.odd ? 27 : 24), g_nmval);
+      else add3(d, PK + 3, g_nmval);
+    } else {
+      g_nrm = vadd(g_nrm, g_normal);
+    }
+    // metallic and roughness: the factor, a checker pair or a map channel,
+    // clipped to [0, 1] unless the factor
+    if (s.mk == 0) {
+      d[GF + 4] += g_m;
+    } else {
+      float g2 = g_m * dclipn(s.m2, 0.0f, 1.0f);
+      if (s.mk == 2) d[GF + (s.odd ? 21 : 20)] += g2;
+      else if (s.mk == 3) d[PK + 6] += g2 / 255.0f;
+      else d[GF + 4] += g2;
+    }
+    if (s.rk == 0) {
+      d[GF + 5] += g_rr;
+    } else {
+      float g2 = g_rr * dclipn(s.r2, 0.0f, 1.0f);
+      if (s.rk == 2) d[GF + (s.odd ? 23 : 22)] += g2;
+      else if (s.rk == 3) d[PK + 7] += g2 / 255.0f;
+      else d[GF + 5] += g2;
+    }
+    // attenuation: base, or (1/255) x (albedo c0 | 255 x checker | texel)
+    if (s.ak == 0) {
+      g_base = vadd(g_base, g_atten);
+    } else {
+      V3 g_map = vscale((float)(1.0 / 255.0), g_atten);
+      if (s.ak == 2) add3(d, GF + (s.odd ? 11 : 8), vscale(255.0f, g_map));
+      else if (s.ak == 1) add3(d, GF + 8, g_map);
+      else add3(d, PK, g_map);
+    }
+  }
+
+  g_dr = vadd(g_dr, vunit_bwd(s.dr, g_ud));  // ud = vunit(dr)
+  add3(d, 0, g_org);
+  add3(d, 3, g_dr);
+  add3(d, 6, g_thr);
+  add3(d, 9, G_rad);
+  add3(d, 13, g_p);
+  add3(d, 16, g_nrm);
+  add3(d, GF, g_base);
+  add3(d, 72, g_bg);
 #pragma unroll
-  for (int kk = 0; kk < 16; ++kk) out[(size_t)kk * n + r] = vals[kk];
+  for (int kk = 0; kk < NSF; ++kk) dout[(size_t)kk * n + r] = d[kk];
 }
 
 constexpr int THREADS = 256;
+
+inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 }  // namespace
 
@@ -344,8 +806,7 @@ extern "C" {
 
 int srt_hitrec(const float* hf, int n, float* out, void* stream) {
   if (n > 0) {
-    hitrec_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                    (cudaStream_t)stream>>>(hf, n, out);
+    hitrec_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(hf, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -353,8 +814,26 @@ int srt_hitrec(const float* hf, int n, float* out, void* stream) {
 int srt_shade(const float* sf, const int* si, int n, float* out,
               void* stream) {
   if (n > 0) {
-    shade_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                   (cudaStream_t)stream>>>(sf, si, n, out);
+    shade_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(sf, si, n,
+                                                                  out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int srt_hitrec_bwd(const float* hf, const float* gout, int n, float* dout,
+                   void* stream) {
+  if (n > 0) {
+    hitrec_bwd_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+        hf, gout, n, dout);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int srt_shade_bwd(const float* sf, const int* si, const float* gout, int n,
+                  float* dout, void* stream) {
+  if (n > 0) {
+    shade_bwd_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+        sf, si, gout, n, dout);
   }
   return static_cast<int>(cudaGetLastError());
 }

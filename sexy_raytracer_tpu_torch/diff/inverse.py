@@ -1,0 +1,229 @@
+"""The differentiable train step: loss, gradients and Adam (counterpart of
+``sexy_raytracer_tpu/diff/inverse.py:38-362``).
+
+The loss renders a random pixel subset at low spp, resolves it like the
+forward pipeline and compares it with the target pixels. Gradients flow
+through the hit record, shading, the carry and the row gathers (the fused
+kernels' VJPs and the histogram of ops/), with hit finding stop-gradient.
+
+One device, no mesh: the JAX step's shard_map and gradient all-reduce
+(inverse.py:243-279) wait for the port of ``parallel/``, so the whole
+batch is one wavefront and ``spp_total = spb``. ``inverse_render`` (EMA,
+curricula) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from sexy_raytracer_tpu_torch.diff.params import merge_params
+from sexy_raytracer_tpu_torch.render.renderer import render_pixels
+from sexy_raytracer_tpu_torch.utils.config import RenderConfig
+from sexy_raytracer_tpu_torch.utils.mathx import clip
+
+
+def _huber(err, delta):
+    a = torch.abs(err)
+    return torch.mean(torch.where(a <= delta, 0.5 * err * err,
+                                  delta * (a - 0.5 * delta)))
+
+
+def _loss_fn(params, scene, camera, pixel_ids, target_pixels, sample_start,
+             base_key, background, *, width, height, spb, spp_total,
+             max_bounce, method, loss_type="mse", huber_delta=0.1,
+             last_bounce_vis=False):
+    """Scalar loss of ``spb`` samples per pixel against the target
+    (inverse.py:38-130). ``loss_type``:
+
+    * ``mse`` — gamma-2 resolve clamped to [0, 0.999] (color.h:30-39), MSE;
+    * ``huber`` — the same resolve, Huber with ``huber_delta``;
+    * ``linear_mse`` — Huber on linear radiance (unbiased at any spb);
+    * ``tile_linear`` — Huber on linear radiance averaged over each
+      128-pixel tile of ``sample_tile_ids`` before the residual.
+    """
+    full = merge_params(scene, params)
+    rad = render_pixels(
+        full, camera, pixel_ids, sample_start, base_key, background,
+        width=width, height=height, spb=spb, spp_total=spp_total,
+        max_bounce=max_bounce, method=method, last_bounce_vis=last_bounce_vis,
+    )
+    if loss_type == "tile_linear":
+        G = 128  # sample_tile_ids tile size (16 x 8)
+        n = rad.shape[0] // G
+        r_t = (rad / spb).reshape(n, G, 3).mean(dim=1)
+        t_t = target_pixels.reshape(n, G, 3).mean(dim=1)
+        return _huber(r_t - t_t, huber_delta)
+    if loss_type == "linear_mse":
+        return _huber(rad / spb - target_pixels, huber_delta)
+    resolved = clip(torch.sqrt(clip(rad / spb, 1e-8, None)), 0.0, 0.999)
+    err = resolved - target_pixels
+    if loss_type == "huber":
+        return _huber(err, huber_delta)
+    return torch.mean(err * err)
+
+
+class TrainState(NamedTuple):
+    params: dict
+    opt_state: object
+    step: int
+
+
+def sample_tile_ids(rng_np, width, height, n_pixels, tile_w=16, tile_h=8,
+                    roi=None):
+    """Random screen tiles -> [n_pixels] int32 pixel ids (a numpy copy of
+    inverse.py:139-190).
+
+    ``roi``: optional (row0, row1, col0, col1) region the tiles are drawn
+    in. Tiles come from the ceil-grid with the last row and column clamped
+    inward, so every pixel can be drawn and each tile stays spatially
+    coherent for the find kernel's ray blocks.
+    """
+    tp = tile_w * tile_h
+    n_tiles = max(1, n_pixels // tp)
+    r0, r1, c0, c1 = roi if roi is not None else (0, height, 0, width)
+    ntx = max(1, -(-(c1 - c0) // tile_w))
+    nty = max(1, -(-(r1 - r0) // tile_h))
+    x0 = np.minimum(
+        np.minimum(
+            c0 + rng_np.integers(0, ntx, size=n_tiles) * tile_w,
+            max(c1 - tile_w, c0),
+        ),
+        max(width - tile_w, 0),
+    )
+    y0 = np.minimum(
+        np.minimum(
+            r0 + rng_np.integers(0, nty, size=n_tiles) * tile_h,
+            max(r1 - tile_h, r0),
+        ),
+        max(height - tile_h, 0),
+    )
+    yy = np.arange(tile_h)[:, None]
+    xx = np.arange(tile_w)[None, :]
+    y = np.minimum(y0[:, None, None] + yy[None], height - 1)
+    x = np.minimum(x0[:, None, None] + xx[None], width - 1)
+    ids = (y * width + x).reshape(-1)
+    if ids.size < n_pixels:  # pad by repeating (n_pixels not tile-divisible)
+        ids = np.concatenate([ids, ids[: n_pixels - ids.size]])
+    return ids[:n_pixels].astype(np.int32)
+
+
+def make_train_step(config: RenderConfig, optimizer, spb: int = 4,
+                    method: str = "auto", grad_masks=None,
+                    loss_type: str = "mse", huber_delta: float = 0.1,
+                    param_transform=None, last_bounce_vis: bool = False):
+    """Build a train step on the device of the tensors it is given.
+
+    Returns ``step(state, scene, camera, pixel_ids, target_pixels, key)
+    -> (state, loss)``. ``grad_masks``: optional dict param name ->
+    broadcastable 0/1 tensor; masked elements get a zero gradient.
+    ``param_transform``: optional differentiable map from the optimised
+    params to the scene fields merged into the scene. The step has
+    ``.init(params)`` (a TrainState of copied params) and ``.params_of``.
+    """
+    kwargs = dict(
+        width=config.width, height=config.height, spb=spb,
+        # every traced sample counts: one device traces spb samples
+        spp_total=spb, max_bounce=config.max_bounce, method=method,
+        loss_type=loss_type, huber_delta=huber_delta,
+        last_bounce_vis=last_bounce_vis,
+    )
+
+    def step(state, scene, camera, pixel_ids, target_pixels, key):
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in state.params.items()}
+        fields = param_transform(params) if param_transform else params
+        background = torch.tensor(config.background, dtype=torch.float32,
+                                  device=pixel_ids.device)
+        loss = _loss_fn(fields, scene, camera, pixel_ids, target_pixels, 0,
+                        key, background, **kwargs)
+        names = list(params)
+        got = torch.autograd.grad(loss, [params[k] for k in names],
+                                  allow_unused=True)
+        grads = {k: torch.zeros_like(params[k]) if g is None else g
+                 for k, g in zip(names, got)}
+        for k, mask in (grad_masks or {}).items():
+            grads[k] = grads[k] * torch.as_tensor(
+                mask, dtype=grads[k].dtype, device=grads[k].device)
+        updates, opt_state = optimizer.update(grads, state.opt_state)
+        new = {k: state.params[k] + updates[k] for k in names}
+        return TrainState(new, opt_state, state.step + 1), loss.detach()
+
+    def init(params):
+        params = {k: v.detach().clone() for k, v in params.items()}
+        return TrainState(params, optimizer.init(params), 0)
+
+    def params_of(state):
+        return dict(state.params)
+
+    step.init = init
+    step.params_of = params_of
+    return step
+
+
+class AdamState(NamedTuple):
+    count: int
+    mu: dict
+    nu: dict
+
+
+class Adam:
+    """Adam with a learning rate per parameter, as
+    ``optax.multi_transform`` of ``chain(zero_nans(), adam(lr))`` groups
+    (inverse.py:348-362): b1 0.9, b2 0.999, eps 1e-8, bias correction, NaN
+    gradients zeroed before the moments, and an optional cosine decay of
+    the rate to ``alpha`` of it over ``decay_steps``. The scalar factors
+    are rounded to float32 as optax computes them.
+    """
+
+    def __init__(self, lrs: dict, decay_steps=None, alpha=0.05, b1=0.9,
+                 b2=0.999, eps=1e-8):
+        self.lrs = dict(lrs)
+        self.decay_steps = decay_steps
+        self.alpha, self.b1, self.b2, self.eps = alpha, b1, b2, eps
+
+    def init(self, params) -> AdamState:
+        return AdamState(0, {k: torch.zeros_like(v) for k, v in params.items()},
+                         {k: torch.zeros_like(v) for k, v in params.items()})
+
+    def learning_rate(self, name, count) -> float:
+        """The rate of ``name`` at step ``count`` (0-based)."""
+        lr = self.lrs[name]
+        if not self.decay_steps:
+            return lr
+        f = np.float32
+        t = min(f(count), f(self.decay_steps))
+        cosine = f(0.5) * (f(1.0) + np.cos(f(np.pi) * t / f(self.decay_steps)))
+        return float(f(lr) * (f(1.0 - self.alpha) * cosine + f(self.alpha)))
+
+    def update(self, grads, state: AdamState):
+        """-> (updates to add to the params, new state)."""
+        f = np.float32
+        c = state.count + 1
+        bc1 = float(f(1.0) - f(self.b1) ** f(c))
+        bc2 = float(f(1.0) - f(self.b2) ** f(c))
+        updates, mu, nu = {}, {}, {}
+        for k, g in grads.items():
+            g = torch.where(torch.isnan(g), torch.zeros_like(g), g)
+            mu[k] = (1.0 - self.b1) * g + self.b1 * state.mu[k]
+            nu[k] = (1.0 - self.b2) * (g * g) + self.b2 * state.nu[k]
+            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
+            updates[k] = u * -self.learning_rate(k, state.count)
+        return updates, AdamState(c, mu, nu)
+
+
+def make_optimizer(params, learning_rate, lr_overrides=None,
+                   decay_steps=None) -> Adam:
+    """Adam with per-group learning rates and cosine decay
+    (inverse.py:326-362). The texel packs (``shade_atlas``, ``atlas``,
+    0-255 scale) default to ``learning_rate * 256``; every other parameter
+    takes ``learning_rate`` unless ``lr_overrides`` names it.
+    """
+    lr_overrides = dict(lr_overrides) if lr_overrides else {}
+    for texel_group in ("shade_atlas", "atlas"):
+        if texel_group in params:
+            lr_overrides.setdefault(texel_group, learning_rate * 256.0)
+    lrs = {k: lr_overrides.get(k, learning_rate) for k in params}
+    return Adam(lrs, decay_steps=decay_steps)

@@ -1,5 +1,6 @@
-"""Spatial triangle clustering for the find kernel (a numpy copy of
-``sexy_raytracer_tpu/models/clusters.py:62-121``).
+"""Spatial triangle clustering for the find kernel (a copy of
+``sexy_raytracer_tpu/models/clusters.py:32-121``: numpy on the host,
+torch for the bounds of trained vertices).
 
 The find kernel (ops/find.py) tests triangles in tiles of ``CLUSTER_SIZE``
 and skips whole tiles whose AABB a ray block misses. Triangles are ordered
@@ -12,10 +13,40 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 # triangles per cluster tile; the environment override is shared with the
 # JAX package so that both build the same scene order.
 CLUSTER_SIZE = int(os.environ.get("SRT_CLUSTER_SIZE", "256"))
+_BIG = 3.0e38
+
+
+def cluster_bounds_device(tri_v0, tri_v1, tri_v2, ck=None):
+    """Re-derive cluster AABBs on the device from (trained) vertices.
+
+    The partition is static — cluster ``c`` covers scene-order triangles
+    ``[c*ck, (c+1)*ck)`` — so the bounds are a segment min/max over it.
+    Without this, the find kernel tests trained geometry against stale
+    boxes and drops hits. Flat axes are padded +-1e-4 like the host path
+    (model.h:199-204). Returns ``(cluster_min, cluster_max)`` [NC, 3].
+    """
+    if ck is None:
+        ck = CLUSTER_SIZE
+    T = tri_v0.shape[0]
+    if T == 0:
+        empty = tri_v0.new_zeros((0, 3))
+        return empty, empty.clone()
+    tmin = torch.minimum(torch.minimum(tri_v0, tri_v1), tri_v2)
+    tmax = torch.maximum(torch.maximum(tri_v0, tri_v1), tri_v2)
+    flat = tmin == tmax
+    tmin = torch.where(flat, tmin - 1e-4, tmin)
+    tmax = torch.where(flat, tmax + 1e-4, tmax)
+    nc = -(-T // ck)
+    pad = nc * ck - T
+    tmin = torch.nn.functional.pad(tmin, (0, 0, 0, pad), value=_BIG)
+    tmax = torch.nn.functional.pad(tmax, (0, 0, 0, pad), value=-_BIG)
+    return (tmin.reshape(nc, ck, 3).amin(dim=1),
+            tmax.reshape(nc, ck, 3).amax(dim=1))
 
 
 def dfs_order(pmin: np.ndarray, pmax: np.ndarray) -> np.ndarray:

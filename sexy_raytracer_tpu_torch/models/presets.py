@@ -1,6 +1,7 @@
 """Asset-free scene presets (counterpart of ``models/presets.py``).
 
-Each preset returns ``(SceneData, RenderConfig)``. The parts of the
+Each preset returns ``(SceneData, RenderConfig)``, the scene on
+``device``: the card unless the caller asks for ``"cpu"``. The parts of the
 flagship scene that need no asset files are ported (the ground, the HDR
 light, the sentinel-textured iron sphere and the mirror sphere); the
 Master Chief glTF and its loader wait until the asset is in the
@@ -133,7 +134,7 @@ def add_relief_mesh(b, n: int = 39) -> None:
 
 
 def flagship_standin(n: int = 39, spp: int = 8, height: int = 720,
-                     data_dir: str | None = None):
+                     data_dir: str | None = None, device="cuda"):
     """The flagship scene with the relief mesh in place of Master Chief.
 
     Same composition order as ``masterchief`` (reference main.cpp:54-154):
@@ -145,7 +146,7 @@ def flagship_standin(n: int = 39, spp: int = 8, height: int = 720,
     add_relief_mesh(b, n)
     _add_ground_and_lights(b)
     _add_iron_and_metal(b, data_dir)
-    scene = b.build(build_bvh=False)
+    scene = b.build(build_bvh=False, device=device)
     cfg = RenderConfig(
         width=int(height * 16 / 9),
         height=height,
@@ -156,7 +157,8 @@ def flagship_standin(n: int = 39, spp: int = 8, height: int = 720,
     return scene, cfg
 
 
-def shirley_spheres(seed: int = 4, spp: int = 16, height: int = 240):
+def shirley_spheres(seed: int = 4, spp: int = 16, height: int = 240,
+                    device="cuda"):
     """The book's random-sphere field (reference main.cpp:92-122).
     Deterministic via a seeded numpy Generator."""
     rng = np.random.default_rng(seed)
@@ -197,7 +199,7 @@ def shirley_spheres(seed: int = 4, spp: int = 16, height: int = 240):
     )
     b.add_sphere((4, 1, 0), 1.0, b.add_metal_material((0.7, 0.6, 0.5), 0.0))
 
-    scene = b.build(build_bvh=False)
+    scene = b.build(build_bvh=False, device=device)
     cfg = RenderConfig(
         width=int(height * 16 / 9),
         height=height,
@@ -215,13 +217,13 @@ def shirley_spheres(seed: int = 4, spp: int = 16, height: int = 240):
 
 
 def rustediron_globe(data_dir: str | None = None, spp: int = 64,
-                     height: int = 480):
+                     height: int = 480, device="cuda"):
     """The rusted-iron PBR globe under the flagship furniture."""
     data_dir = data_dir or default_data_dir()
     b = SceneBuilder()
     _add_ground_and_lights(b)
     _add_iron_and_metal(b, data_dir)
-    scene = b.build(build_bvh=False)
+    scene = b.build(build_bvh=False, device=device)
     cfg = RenderConfig(
         width=int(height * 16 / 9),
         height=height,

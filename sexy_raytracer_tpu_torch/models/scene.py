@@ -177,8 +177,9 @@ class SceneData(NamedTuple):
         return SceneData(*(a.to(device) for a in self))
 
 
-def scene_from_numpy(fields) -> SceneData:
-    """A scene given as numpy arrays -> ``SceneData`` of CPU tensors.
+def scene_from_numpy(fields, device="cuda") -> SceneData:
+    """A scene given as numpy arrays -> ``SceneData`` of tensors on
+    ``device`` (the card unless the caller asks for ``"cpu"``).
 
     ``fields`` is a mapping of field name to array, or any NamedTuple with
     the same field names, such as the JAX package's
@@ -191,31 +192,36 @@ def scene_from_numpy(fields) -> SceneData:
     if missing:
         raise KeyError(f"scene fields missing: {missing}")
     return SceneData(**{
-        k: torch.from_numpy(np.array(fields[k], copy=True))
+        k: torch.from_numpy(np.array(fields[k], copy=True)).to(device)
         for k in SceneData._fields
     })
 
 
 def prepare_triangles(tri_v0, tri_v1, tri_v2):
-    """Precompute the triangle plane/edge pack (numpy).
+    """Precompute the triangle plane/edge pack, of numpy arrays or of
+    tensors.
 
     ``N`` is the unnormalized cross of edges exactly as the reference's
     ``triangle::getNormal`` (model.h:276-283); edge vectors follow the
     inside-test order of model.h:136-154 (e0 at v0, e1 at v1, e2 at v2).
     """
-    n = np.cross(tri_v1 - tri_v0, tri_v2 - tri_v0)
-    d = -np.sum(n * tri_v0, axis=-1)
+    if torch.is_tensor(tri_v0):
+        cross, stack = torch.linalg.cross, torch.stack
+    else:
+        cross, stack = np.cross, np.stack
+    n = cross(tri_v1 - tri_v0, tri_v2 - tri_v0)
+    d = -(n * tri_v0).sum(-1)
     e0 = tri_v1 - tri_v0
     e1 = tri_v2 - tri_v1
     e2 = tri_v0 - tri_v2
-    q0 = np.cross(n, e0)
-    q1 = np.cross(n, e1)
-    q2 = np.cross(n, e2)
-    c0 = np.sum(q0 * tri_v0, axis=-1)
-    c1 = np.sum(q1 * tri_v1, axis=-1)
-    c2 = np.sum(q2 * tri_v2, axis=-1)
-    q = np.stack([q0, q1, q2], axis=-2)  # [T,3,3]
-    c = np.stack([c0, c1, c2], axis=-1)  # [T,3]
+    q0 = cross(n, e0)
+    q1 = cross(n, e1)
+    q2 = cross(n, e2)
+    c0 = (q0 * tri_v0).sum(-1)
+    c1 = (q1 * tri_v1).sum(-1)
+    c2 = (q2 * tri_v2).sum(-1)
+    q = stack([q0, q1, q2], -2)  # [T,3,3]
+    c = stack([c0, c1, c2], -1)  # [T,3]
     return n, d, q, c
 
 
@@ -407,9 +413,10 @@ class SceneBuilder:
         self._spheres.append((c0, c1, float(time0), float(time1), float(radius), material))
 
     # -- build -----------------------------------------------------------
-    def build(self, build_bvh: bool = True, device=None) -> SceneData:
-        """Flatten the scene -> ``SceneData`` of tensors on ``device``
-        (default CPU).
+    def build(self, build_bvh: bool = True, device="cuda") -> SceneData:
+        """Flatten the scene -> ``SceneData`` of tensors on ``device``: the
+        card unless the caller asks for ``"cpu"``. Without a card the
+        default raises torch's own error; there is no fallback.
 
         The port has no BVH yet (its find kernel culls clusters, which
         needs none): ``build_bvh=True`` raises, and the ``bvh_*`` fields
@@ -420,8 +427,7 @@ class SceneBuilder:
                 "the BVH build is not ported yet (ROADMAP.md queue 1, big "
                 "scenes); call build(build_bvh=False)"
             )
-        scene = scene_from_numpy(self._build_numpy())
-        return scene if device is None else scene.to(device)
+        return scene_from_numpy(self._build_numpy(), device)
 
     def _build_numpy(self) -> dict:
         f32, i32 = np.float32, np.int32

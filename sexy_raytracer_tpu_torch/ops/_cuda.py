@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "sexy_raytracer_tpu_torch"
-SOURCES = ("find.cu", "fused.cu")
+SOURCES = ("find.cu", "fused.cu", "histogram.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

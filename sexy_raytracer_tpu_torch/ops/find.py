@@ -244,8 +244,11 @@ def _scene_lists(scene, org, dir, t_min, t_max, nb, cull):
 # closest hit
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def find_hit_clustered(scene, org, dir, time, t_min=None, cull=True):
     """Closest hit for a ray wavefront. Returns (prim [R] int32, t [R]).
+    Stop-gradient, as JAX (pallas_find.py:538-541): the packs are built
+    without recording a graph.
 
     ``prim``: global primitive id (triangles then spheres), -1 = miss.
     ``t_min`` may be a scalar or per-ray [R]; rays with ``t_min >= 3e38``
@@ -441,10 +444,12 @@ def find_closest_plain(lists, rays, tri_pack, sph_pack, n_tris):
 # any hit (last-bounce occlusion)
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def find_occluded(scene, org, dir, time, t_bound, t_min=None,
                   sphere_occluder=None):
     """Any-hit query: per ray, does a NON-emissive primitive hit with
-    ``t_min <= t < t_bound``? Returns bool [R].
+    ``t_min <= t < t_bound``? Returns bool [R]. Stop-gradient, as JAX
+    (pallas_find.py:788-792).
 
     ``t_bound`` [R]: the closest emissive hit's t (3e38 when the lane hit
     no emissive prim). Negative t_bound marks dead lanes (reported

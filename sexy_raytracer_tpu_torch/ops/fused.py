@@ -1,26 +1,37 @@
-"""Fused per-bounce kernels: hit record, and shading + carry update
-(counterpart of ``sexy_raytracer_tpu/ops/fused.py:50-429``).
+"""Fused per-bounce kernels: hit record, and shading + carry update, with
+their VJPs (counterpart of ``sexy_raytracer_tpu/ops/fused.py:50-565``).
 
 * ``hitrec_fused`` replaces ``_hitrec_kernel`` (fused.py:442, math
-  ``hitrec_math`` :141): the hit record from the winning triangle and
-  sphere rows.
+  ``hitrec_math`` :141) forward and ``_hitrec_bwd_kernel`` (fused.py:446)
+  backward: the hit record from the winning triangle and sphere rows.
 * ``shade_carry_fused`` replaces ``_shade_kernel`` (fused.py:501, math
-  ``shade_carry_math`` :271): all four materials, emission, and the path
+  ``shade_carry_math`` :271) forward and ``_shade_bwd_kernel``
+  (fused.py:505) backward: all four materials, emission, and the path
   carry update.
 
-Every per-ray input is one row of a ``[K, R]`` float32 stack, rays
-contiguous — the TPU's ``[K, RB, 128]`` planes flattened. The row maps
-below are the JAX package's, so stacks compare one to one. On CUDA
-tensors the wrappers launch the kernels of ``csrc/fused.cu``; on CPU
-tensors they run the plain math here, which is the kernels' specification.
+Both are ``torch.autograd.Function``s, the counterpart of the JAX
+``custom_vjp``s. Every per-ray input is one row of a ``[K, R]`` float32
+stack, rays contiguous — the TPU's ``[K, RB, 128]`` planes flattened. The
+row maps below are the JAX package's, so stacks compare one to one. On
+CUDA tensors the wrappers launch the kernels of ``csrc/fused.cu``; on CPU
+tensors they run the plain versions here, which are the kernels'
+specification: the math, and ``torch.autograd.grad`` of the math for the
+backward (the in-kernel ``jax.vjp`` of the TPU). Rows that JAX stops the
+gradient of are detached in the math, so their cotangents come back zero.
+``torch.maximum``/``minimum`` stand where JAX has ``jnp.maximum``/``clip``:
+they split the gradient of a tie half and half as JAX does
+(``torch.clamp`` gives it all to the input).
 
-Kernel note (both). One thread per ray; each reads its column of the
-input stack and writes its column of the output, coalesced across a warp.
-Bound: device memory — 200 B in and 64 B out per ray for the shade
-kernel (136 B + 64 B for the hit record) against a few hundred flops, so
-both run at the bandwidth of streaming the stacks once. The design keeps
+Kernel note (all four). One thread per ray; each reads its column of the
+input stacks and writes its column of the output, coalesced across a warp.
+Bound: device memory — (75 + 6) x 4 B in and 64 B out per ray for the
+shade kernel (136 B + 64 B for the hit record) against a few hundred
+flops, so they run at the bandwidth of streaming the stacks once. The forward keeps
 everything between the stacks in registers, as the TPU kernel keeps it in
-VMEM.
+VMEM; a backward kernel re-runs the forward of its ray in registers and
+walks a hand-written adjoint in reverse, as the TPU's in-kernel
+``jax.vjp`` saves no intermediates either: (34 + 16 + 34) x 4 B per ray
+for the hit record's VJP, (75 + 6 + 16 + 75) x 4 B for the shade VJP.
 """
 
 from __future__ import annotations
@@ -34,7 +45,14 @@ from sexy_raytracer_tpu_torch.models.scene import (
     MAT_PBR,
 )
 from sexy_raytracer_tpu_torch.ops import _cuda
-from sexy_raytracer_tpu_torch.utils.mathx import EPSILON, PI
+from sexy_raytracer_tpu_torch.utils.mathx import (
+    EPSILON,
+    PI,
+    clip as _clip,
+    maximum as _max,
+    minimum as _min,
+    safe_sqrt as _safe_sqrt,
+)
 
 # HF rows (f32 input stack, NHF total):
 #   0-2 org | 3-5 dir | 6 time | 7-21 tri row g[0:15]
@@ -70,6 +88,14 @@ HITREC = _cuda.Kernel(
 SHADE = _cuda.Kernel(
     "srt_shade", source="sexy_raytracer_tpu_torch/csrc/fused.cu",
     replaces="sexy_raytracer_tpu/ops/fused.py:501 (_shade_kernel)",
+)
+HITREC_BWD = _cuda.Kernel(
+    "srt_hitrec_bwd", source="sexy_raytracer_tpu_torch/csrc/fused.cu",
+    replaces="sexy_raytracer_tpu/ops/fused.py:446 (_hitrec_bwd_kernel)",
+)
+SHADE_BWD = _cuda.Kernel(
+    "srt_shade_bwd", source="sexy_raytracer_tpu_torch/csrc/fused.cu",
+    replaces="sexy_raytracer_tpu/ops/fused.py:505 (_shade_bwd_kernel)",
 )
 
 
@@ -118,8 +144,6 @@ def _vwhere(m, a, b):
             _where(m, a[2], b[2]))
 
 
-def _safe_sqrt(x, eps=1e-24):
-    return torch.sqrt(torch.clamp(x, min=eps))
 
 
 def _vunit(v):
@@ -133,7 +157,7 @@ def _vreflect(v, n):
 
 
 def _vrefract(uv, n, ratio):
-    cos_theta = torch.clamp(_vdot(n, _vneg(uv)), max=1.0)
+    cos_theta = _min(_vdot(n, _vneg(uv)), 1.0)
     perp = _vscale(ratio, _vadd(uv, _vscale(cos_theta, n)))
     par = _vscale(-_safe_sqrt(torch.abs(1.0 - _vdot(perp, perp))), n)
     return _vadd(perp, par)
@@ -170,13 +194,14 @@ def hitrec_math(F):
 
     def invdist(v):
         w = _vsub(p_t, v)
-        return 1.0 / torch.clamp(_safe_sqrt(_vdot(w, w)), min=1e-20)
+        return 1.0 / _max(_safe_sqrt(_vdot(w, w)), 1e-20)
 
     r0, r1, r2 = invdist(v0), invdist(v1), invdist(v2)
     denom = r0 + r1 + r2
     r0, r1, r2 = r0 / denom, r1 / denom, r2 / denom
-    u_t = r0 * uv0[0] + r1 * uv1[0] + r2 * uv2[0]
-    v_t = 1.0 - (r0 * uv0[1] + r1 * uv1[1] + r2 * uv2[1])
+    # stop-gradient, as JAX (fused.py:173-174)
+    u_t = (r0 * uv0[0] + r1 * uv1[0] + r2 * uv2[0]).detach()
+    v_t = (1.0 - (r0 * uv0[1] + r1 * uv1[1] + r2 * uv2[1])).detach()
 
     outward_t = _vunit(n)
     front_t = _vdot(dr, outward_t) < 0.0
@@ -239,14 +264,50 @@ def hitrec_math(F):
 
 
 def hitrec_fused(hf):
-    """[NHF, R] f32 -> [NHO, R] f32 hit-record stack."""
+    """[NHF, R] f32 -> [NHO, R] f32 hit-record stack, differentiable in
+    ``hf`` through ``hitrec_bwd``."""
+    return _HitrecFused.apply(hf)
+
+
+class _HitrecFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hf):
+        ctx.save_for_backward(hf)
+        if not hf.is_cuda:
+            return hitrec_math(hf)
+        _check_stack("hf", hf, NHF, torch.float32)
+        out = torch.empty((NHO, hf.shape[1]), dtype=torch.float32,
+                          device=hf.device)
+        HITREC.launch(hf.device, _cuda.ptr(hf), hf.shape[1], _cuda.ptr(out))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (hf,) = ctx.saved_tensors
+        return hitrec_bwd(hf, g.contiguous())
+
+
+def hitrec_bwd(hf, g):
+    """VJP of the hit record: [NHF, R] stack, [NHO, R] cotangent ->
+    [NHF, R] cotangent of the stack. The kernel on CUDA tensors,
+    ``hitrec_vjp_plain`` on CPU tensors."""
     if not hf.is_cuda:
-        return hitrec_math(hf)
+        return hitrec_vjp_plain(hf, g)
     _check_stack("hf", hf, NHF, torch.float32)
-    out = torch.empty((NHO, hf.shape[1]), dtype=torch.float32,
-                      device=hf.device)
-    HITREC.launch(hf.device, _cuda.ptr(hf), hf.shape[1], _cuda.ptr(out))
+    _check_stack("g", g, NHO, torch.float32, like=hf)
+    out = torch.empty_like(hf)
+    HITREC_BWD.launch(hf.device, _cuda.ptr(hf), _cuda.ptr(g), hf.shape[1],
+                      _cuda.ptr(out))
     return out
+
+
+def hitrec_vjp_plain(hf, g):
+    """Plain version of ``hitrec_bwd``: ``torch.autograd.grad`` of
+    ``hitrec_math`` with cotangent ``g``."""
+    with torch.enable_grad():
+        F = hf.detach().requires_grad_(True)
+        (dF,) = torch.autograd.grad(hitrec_math(F), F, g)
+    return dF
 
 
 # ---------------------------------------------------------------------------
@@ -274,9 +335,10 @@ def shade_carry_math(F, I):
     def pk(k):
         return F[SF_PACK + k]
 
-    ruv = (F[65], F[66], F[67])
-    rball = (F[68], F[69], F[70])
-    runi = F[71]
+    # the random draws are stop-gradient, as JAX (fused.py:286-288)
+    ruv = (F[65].detach(), F[66].detach(), F[67].detach())
+    rball = (F[68].detach(), F[69].detach(), F[70].detach())
+    runi = F[71].detach()
     bg = (F[72], F[73], F[74])
     mtype, ak, nk, mk, rk, ek = I[0], I[1], I[2], I[3], I[4], I[5]
 
@@ -312,11 +374,11 @@ def shade_carry_math(F, I):
     metallic, roughness = g(4), g(5)
     m_ck = _where(odd, g(21), g(20))
     m = _where(mk == 3, pk(6) / 255.0, metallic)
-    m = torch.clamp(_where(mk == 2, m_ck, m), 0.0, 1.0)
+    m = _clip(_where(mk == 2, m_ck, m), 0.0, 1.0)
     m = _where(mk == 0, metallic, m)
     r_ck = _where(odd, g(23), g(22))
     r = _where(rk == 3, pk(7) / 255.0, roughness)
-    r = torch.clamp(_where(rk == 2, r_ck, r), 0.0, 1.0)
+    r = _clip(_where(rk == 2, r_ck, r), 0.0, 1.0)
     r = _where(rk == 0, roughness, r)
 
     scatter = _vadd(normal, ruv)
@@ -326,16 +388,16 @@ def shade_carry_math(F, I):
 
     view = _vneg(_vunit(dr))
     half = _vunit(_vadd(scatter, view))
-    n_dot_l = torch.clamp(_vdot(normal, scatter), min=0.0)
-    n_dot_h = torch.clamp(_vdot(normal, half), min=0.0)
-    h_dot_v = torch.clamp(_vdot(half, view), min=0.0)
-    n_dot_v = torch.clamp(_vdot(normal, view), min=0.0)
+    n_dot_l = _max(_vdot(normal, scatter), 0.0)
+    n_dot_h = _max(_vdot(normal, half), 0.0)
+    h_dot_v = _max(_vdot(half, view), 0.0)
+    n_dot_v = _max(_vdot(normal, view), 0.0)
 
     f0 = _vadd(_vscale(1.0 - m, (0.4, 0.4, 0.4)), _vscale(m, base_rgb))
     # guard 1e-12: the NaN guard of the GGX denominator (fused.py:346-351)
     alpha2 = (r * r) * (r * r)
     q = n_dot_h * n_dot_h * (alpha2 - 1.0) + 1.0
-    dterm = alpha2 / torch.clamp(PI * (q * q), min=1e-12)
+    dterm = alpha2 / _max(PI * (q * q), 1e-12)
     power = torch.exp2((-5.55473 * h_dot_v - 6.98316) * h_dot_v)
     fres = _vadd(f0, _vscale(power, _vsub(one3, f0)))
     rp1 = r + 1.0
@@ -363,8 +425,8 @@ def shade_carry_math(F, I):
     ior = g(7)
     ratio = _where(front, 1.0 / ior, ior)
     ud = _vunit(dr)
-    cos_t = torch.clamp(_vdot(nrm, _vneg(ud)), max=1.0)
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    cos_t = _min(_vdot(nrm, _vneg(ud)), 1.0)
+    sin_t = torch.sqrt(_max(1.0 - cos_t * cos_t, 0.0))
     cannot = ratio * sin_t > 1.0
     r0q = (1.0 - ratio) / (1.0 + ratio)
     r0c = r0q * r0q
@@ -418,16 +480,53 @@ def shade_carry_math(F, I):
 
 
 def shade_carry_fused(sf, si):
-    """([NSF, R] f32, [NSI, R] i32) -> [NSO, R] f32 next carry."""
+    """([NSF, R] f32, [NSI, R] i32) -> [NSO, R] f32 next carry,
+    differentiable in ``sf`` through ``shade_bwd``."""
+    return _ShadeFused.apply(sf, si)
+
+
+class _ShadeFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sf, si):
+        ctx.save_for_backward(sf, si)
+        if not sf.is_cuda:
+            return shade_carry_math(sf, si)
+        _check_stack("sf", sf, NSF, torch.float32)
+        _check_stack("si", si, NSI, torch.int32, like=sf)
+        out = torch.empty((NSO, sf.shape[1]), dtype=torch.float32,
+                          device=sf.device)
+        SHADE.launch(sf.device, _cuda.ptr(sf), _cuda.ptr(si), sf.shape[1],
+                     _cuda.ptr(out))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        sf, si = ctx.saved_tensors
+        return shade_bwd(sf, si, g.contiguous()), None
+
+
+def shade_bwd(sf, si, g):
+    """VJP of shade + carry in its f32 rows: [NSF, R], [NSI, R] i32,
+    [NSO, R] cotangent -> [NSF, R]. The kernel on CUDA tensors,
+    ``shade_vjp_plain`` on CPU tensors."""
     if not sf.is_cuda:
-        return shade_carry_math(sf, si)
+        return shade_vjp_plain(sf, si, g)
     _check_stack("sf", sf, NSF, torch.float32)
     _check_stack("si", si, NSI, torch.int32, like=sf)
-    out = torch.empty((NSO, sf.shape[1]), dtype=torch.float32,
-                      device=sf.device)
-    SHADE.launch(sf.device, _cuda.ptr(sf), _cuda.ptr(si), sf.shape[1],
-                 _cuda.ptr(out))
+    _check_stack("g", g, NSO, torch.float32, like=sf)
+    out = torch.empty_like(sf)
+    SHADE_BWD.launch(sf.device, _cuda.ptr(sf), _cuda.ptr(si), _cuda.ptr(g),
+                     sf.shape[1], _cuda.ptr(out))
     return out
+
+
+def shade_vjp_plain(sf, si, g):
+    """Plain version of ``shade_bwd``: ``torch.autograd.grad`` of
+    ``shade_carry_math`` with cotangent ``g``."""
+    with torch.enable_grad():
+        F = sf.detach().requires_grad_(True)
+        (dF,) = torch.autograd.grad(shade_carry_math(F, si), F, g)
+    return dF
 
 
 def _check_stack(name, x, rows, dtype, like=None):
@@ -438,6 +537,6 @@ def _check_stack(name, x, rows, dtype, like=None):
     if not ok:
         raise ValueError(
             f"{name}: need a contiguous [{rows}, R] {dtype} stack"
-            f"{'' if like is None else ' matching sf'}, got "
+            f"{'' if like is None else ' matching the forward stack'}, got "
             f"{tuple(x.shape)} {x.dtype} on {x.device}"
         )

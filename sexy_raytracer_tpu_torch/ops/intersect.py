@@ -155,8 +155,10 @@ def find_hit_bruteforce(scene, org, dir, time, t_min=None, tri_tile=512):
     return prim, t
 
 
+@torch.no_grad()
 def find_hit(scene, org, dir, time, t_min=None, method="auto"):
-    """Dispatch hit finding -> ``(prim [R] int32, t [R] float32)``.
+    """Dispatch hit finding -> ``(prim [R] int32, t [R] float32)``;
+    stop-gradient, whatever the method.
 
     ``method``:
       * ``auto`` / ``pallas`` — the cluster-culled find (ops/find.py): the

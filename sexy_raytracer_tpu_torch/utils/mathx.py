@@ -24,9 +24,27 @@ def dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def maximum(x, c):
+    """``jnp.maximum(x, c)`` for a constant ``c``: a tie splits the gradient
+    half and half, as in JAX (``torch.clamp`` gives it all to ``x``)."""
+    return torch.maximum(x, x.new_tensor(c))
+
+
+def minimum(x, c):
+    """``jnp.minimum(x, c)``, with JAX's tie rule (see ``maximum``)."""
+    return torch.minimum(x, x.new_tensor(c))
+
+
+def clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)``; either bound may be None."""
+    if lo is not None:
+        x = maximum(x, lo)
+    return x if hi is None else minimum(x, hi)
+
+
 def safe_sqrt(x, eps=1e-24):
     """``sqrt(max(x, eps))`` (mathx.safe_sqrt)."""
-    return torch.sqrt(torch.clamp(x, min=eps))
+    return torch.sqrt(maximum(x, eps))
 
 
 def unit_vector(v):

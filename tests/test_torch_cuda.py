@@ -4,8 +4,13 @@ on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 
 The kernels are built without FMA contraction and keep the plain
 versions' evaluation order, so the find kernels must return the same prim
-ids and t bits; the fused kernels are held to the fused-math tolerance of
-tests/test_fused.py (atol 2e-5, rtol 1e-5).
+ids and t bits and the histogram the same sums; the fused kernels are held
+to the fused-math tolerance of tests/test_fused.py (atol 2e-5, rtol 1e-5).
+Their VJPs sum the adjoint in another order than autograd: atol 2e-5,
+rtol 1e-4, with a budget of ill-conditioned lanes (``checks.vjp_outside``),
+on cotangents scaled to unit size so that the VJPs stand well above atol
+(``checks.vjp_check_power``). A train step on the card is held to the same
+step on the CPU with the gate of bench.py:192.
 """
 
 import numpy as np
@@ -13,15 +18,29 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from sexy_raytracer_tpu_torch.diff.inverse import (  # noqa: E402
+    _loss_fn,
+    sample_tile_ids,
+)
+from sexy_raytracer_tpu_torch.diff.params import (  # noqa: E402
+    DEFAULT_TRAINABLE,
+    extract_params,
+)
+from sexy_raytracer_tpu_torch import checks  # noqa: E402
 from sexy_raytracer_tpu_torch.models import presets  # noqa: E402
 from sexy_raytracer_tpu_torch.models.scene import MAT_LIGHT  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import _cuda  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import find as tfind  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import fused as tfused  # noqa: E402
+from sexy_raytracer_tpu_torch.ops import histogram as thist  # noqa: E402
 from sexy_raytracer_tpu_torch.ops.intersect import emissive_sphere_hit  # noqa: E402
+from sexy_raytracer_tpu_torch.render.camera import Camera  # noqa: E402
 from sexy_raytracer_tpu_torch.render.integrator import (  # noqa: E402
     trace_rays_fused,
 )
+from sexy_raytracer_tpu_torch.utils import rng  # noqa: E402
+
+TRAIN = DEFAULT_TRAINABLE + ("tri_v0", "tri_v1", "tri_v2")
 
 pytestmark = pytest.mark.cuda
 
@@ -37,8 +56,8 @@ def dev():
 @pytest.fixture(scope="module")
 def scene(dev, tmp_path_factory):
     s, _ = presets.flagship_standin(
-        n=39, data_dir=str(tmp_path_factory.mktemp("no-assets")))
-    return s.to(dev)
+        n=39, data_dir=str(tmp_path_factory.mktemp("no-assets")), device=dev)
+    return s
 
 
 def _fuzz(n, dev, seed=42):
@@ -142,3 +161,111 @@ def test_trace_on_card_matches_cpu(scene, dev):
                              bg, 4, last_bounce_vis=True).numpy()
     close = np.isclose(rad_k, rad_p, atol=2e-5, rtol=1e-5).all(axis=1)
     assert close.mean() >= 0.995
+
+
+def _grads(scene, cfg, ids, dev, names=TRAIN):
+    """Loss and gradients of a 4-bounce, 2-spb mse loss on ``dev``."""
+    scene = scene.to(dev)
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in extract_params(scene, names).items()}
+    cam = Camera.from_config(cfg.camera, cfg.aspect, device=dev)
+    loss = _loss_fn(params, scene, cam, ids.to(dev),
+                    torch.full((ids.shape[0], 3), 0.25, device=dev), 0,
+                    rng.key(5, device=dev),
+                    torch.tensor(cfg.background, device=dev),
+                    width=cfg.width, height=cfg.height, spb=2, spp_total=2,
+                    max_bounce=4, method="auto", last_bounce_vis=True)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), {k: g.cpu() for k, g in zip(params, grads)}
+
+
+@pytest.fixture(scope="module")
+def small_cfg():
+    """The flagship's camera at 128x72."""
+    return presets.flagship_standin(n=2, height=72, device="cpu")[1]
+
+
+def test_vjp_kernels_match_plain(scene, dev, small_cfg, monkeypatch):
+    """Every hit-record and shade VJP launch of a train-step backward,
+    against autograd of the plain math on the same stacks."""
+    calls = {"hitrec": [], "shade": []}
+
+    def record(name, fn):
+        def run(*args):
+            calls[name].append(tuple(a.clone() for a in args))
+            return fn(*args)
+        return run
+
+    hitrec_bwd, shade_bwd = tfused.hitrec_bwd, tfused.shade_bwd
+    monkeypatch.setattr(tfused, "hitrec_bwd", record("hitrec", hitrec_bwd))
+    monkeypatch.setattr(tfused, "shade_bwd", record("shade", shade_bwd))
+    ids = torch.from_numpy(sample_tile_ids(np.random.default_rng(1), 128, 72,
+                                           2048))
+    before = (tfused.HITREC_BWD.launches, tfused.SHADE_BWD.launches)
+    _grads(scene, small_cfg, ids, dev)
+    torch.cuda.synchronize()
+    assert len(calls["hitrec"]) == len(calls["shade"]) == 4
+    assert (tfused.HITREC_BWD.launches, tfused.SHADE_BWD.launches) == \
+        (before[0] + 4, before[1] + 4)
+    # the step's cotangents are small (a mean over pixels, channels and
+    # samples); the VJP is linear in them, so at unit size its values
+    # stand above atol and the check can fail a wrong kernel. The last
+    # bounce's hit record gets a zero cotangent: nothing to check there
+    hit_calls = [c for c in calls["hitrec"] if bool(c[1].any())]
+    assert len(hit_calls) >= 3
+    for hf, g in hit_calls:
+        g = checks.unit_cotangent(g)
+        got = hitrec_bwd(hf, g)
+        want = tfused.hitrec_vjp_plain(hf, g)
+        ill = checks.ill_conditioned_lanes(hf, tfused.hitrec_math(hf))
+        checks.vjp_outside(got, want, ill)
+        assert checks.vjp_check_power(got, want, ill) > 0
+    for sf, si, g in calls["shade"]:
+        g = checks.unit_cotangent(g)
+        got = shade_bwd(sf, si, g)
+        want = tfused.shade_vjp_plain(sf, si, g)
+        checks.vjp_outside(got, want)
+        assert checks.vjp_check_power(got, want) > 0
+
+
+def test_histogram_kernel_matches_plain(dev):
+    """Bit-equal to the plain version, and to itself on a second launch:
+    duplicates, negative and out-of-range ids, all-zero rows, C 3 and 8."""
+    r = np.random.default_rng(11)
+    for R, C, n_bins in ((131072, 8, 1024), (50000, 3, 70001)):
+        idx = r.integers(-100, n_bins + 100, R)
+        idx[: R // 4] = r.integers(0, 16, R // 4)
+        vals = r.normal(size=(R, C))
+        vals[r.random(R) < 0.2] = 0.0
+        idx = torch.tensor(idx, dtype=torch.int32, device=dev)
+        vals = torch.tensor(vals, dtype=torch.float32, device=dev)
+        before = thist.HISTOGRAM.launches
+        got = thist.dense_histogram(idx, vals, n_bins)
+        again = thist.dense_histogram(idx, vals, n_bins)
+        torch.cuda.synchronize()
+        assert thist.HISTOGRAM.launches == before + 2
+        want = thist.dense_histogram_plain(idx, vals, n_bins)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_train_gradients_on_card_match_cpu(scene, dev, small_cfg):
+    """Loss and gradients with the triangle vertices trained, so that the
+    triangle-pack backward takes the histogram: the card's gradients are
+    non-zero and within the gate of bench.py:192 of the CPU's."""
+    ids = torch.from_numpy(sample_tile_ids(np.random.default_rng(2), 128, 72,
+                                           2048))
+    before = thist.HISTOGRAM.launches
+    loss_k, g_k = _grads(scene, small_cfg, ids, dev)
+    torch.cuda.synchronize()
+    # 4 atlas backwards and 3 triangle-pack ones (the visibility tail
+    # gathers no triangle)
+    assert thist.HISTOGRAM.launches == before + 7
+    loss_p, g_p = _grads(scene, small_cfg, ids, "cpu")
+    assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    for k in TRAIN:
+        scale = float(g_p[k].abs().max())
+        assert float(g_k[k].abs().max()) > 0.0 or k == "sph_c1", k
+        assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-2 * max(scale,
+                                                                  1e-12), k
+

@@ -48,7 +48,7 @@ def scenes():
     jpresets._add_ground_and_lights(b)
     jpresets._add_iron_and_metal(b, "/nonexistent-data-dir")
     jscene = b.build(build_bvh=False, device=False)
-    return jax.device_put(jscene), scene_from_numpy(jscene)
+    return jax.device_put(jscene), scene_from_numpy(jscene, "cpu")
 
 
 def _fuzz(n, seed):

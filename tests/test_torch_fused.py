@@ -12,6 +12,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from sexy_raytracer_tpu.ops import fused as jfused  # noqa: E402
+from sexy_raytracer_tpu_torch import checks  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import fused as tfused  # noqa: E402
 
 R = 4096  # one [K, 32, 128] block of the JAX kernels
@@ -155,3 +156,168 @@ def test_row_maps_match():
     for name in ("NHF", "NHO", "NSF", "SF_GF", "SF_PACK", "SF_IOR", "NSI",
                  "NSO"):
         assert getattr(tfused, name) == getattr(jfused, name), name
+
+
+# ---------------------------------------------------------------------------
+# VJPs (the plain versions of the backward kernels) against jax.vjp
+# ---------------------------------------------------------------------------
+# The adjoints sum their terms in another order than JAX's transpose, so
+# values agree to atol 2e-5, rtol 1e-4 (checks.VJP_TOL); at most 1% of the
+# rays may leave it, and only where the VJP is ill-conditioned in f32
+# (checks.ill_conditioned_lanes: a nearly degenerate uv triangle, a sphere
+# hit by a pole) — checks.vjp_outside.
+
+
+def _cotangent(seed, rows):
+    """Seeded cotangents, nonzero on every output row."""
+    g = np.random.default_rng(seed).normal(size=(rows, R))
+    return np.where(np.abs(g) < 0.05, 0.05, g).astype(np.float32)
+
+
+def _assert_vjp_close(got, want, ill=None):
+    checks.vjp_outside(torch.tensor(got), torch.tensor(want),
+                       None if ill is None else torch.tensor(ill))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hitrec_vjp_matches_jax(seed):
+    F = _hf_stack(seed)
+    g = _cotangent(10 + seed, tfused.NHO)
+    _, vjp = jax.vjp(jfused.hitrec_math, jnp.asarray(F))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    hf = torch.from_numpy(F)
+    got = tfused.hitrec_vjp_plain(hf, torch.from_numpy(g)).numpy()
+    ill = checks.ill_conditioned_lanes(hf, tfused.hitrec_math(hf)).numpy()
+    assert np.isfinite(got).all()
+    _assert_vjp_close(got, want, ill)
+    # t_min, is_tri and is_sph only take part in comparisons
+    assert (got[31:34] == 0).all()
+
+
+def test_hitrec_vjp_stops_uv_gradient():
+    """A cotangent on the triangle uv outputs (rows 12-13) reaches no
+    input, as JAX stops their gradient (fused.py:173-174)."""
+    F = _hf_stack(4)
+    g = np.zeros((tfused.NHO, R), np.float32)
+    g[12:14] = 1.0
+    _, vjp = jax.vjp(jfused.hitrec_math, jnp.asarray(F))
+    assert not np.asarray(vjp(jnp.asarray(g))[0]).any()
+    got = tfused.hitrec_vjp_plain(torch.from_numpy(F), torch.from_numpy(g))
+    assert not got.any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_shade_vjp_matches_jax(seed):
+    F, I = _sf_stack(seed)
+    g = _cotangent(20 + seed, tfused.NSO)
+    _, vjp = jax.vjp(lambda f: jfused.shade_carry_math(f, jnp.asarray(I)),
+                     jnp.asarray(F))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = tfused.shade_vjp_plain(torch.from_numpy(F), torch.from_numpy(I),
+                                 torch.from_numpy(g)).numpy()
+    assert np.isfinite(got).all()
+    _assert_vjp_close(got, want)
+    # alive, front, hit and the random draws (rows 65-71) are stop-gradient
+    # (fused.py:277-288)
+    assert (got[[12, 25, 26]] == 0).all()
+    assert (got[65:72] == 0).all() and (want[65:72] == 0).all()
+
+
+def test_fused_wrappers_differentiate_like_jax_kernels():
+    """Gradients through the port's autograd Functions (on CPU tensors:
+    the plain VJPs) against JAX's custom VJPs, whose backward runs the
+    Pallas kernels 5 and 6 in interpret mode."""
+    hf, (sf, si) = _hf_stack(5), _sf_stack(6)
+    gh, gs = _cotangent(30, tfused.NHO), _cotangent(31, tfused.NSO)
+    want_h = jax.grad(lambda h: jnp.sum(jfused.hitrec_fused(h) * jnp.asarray(
+        gh.reshape(tfused.NHO, -1, 128))))(
+        jnp.asarray(hf.reshape(tfused.NHF, -1, 128)))
+    want_s = jax.grad(lambda s: jnp.sum(jfused.shade_carry_fused(
+        s, jnp.asarray(si.reshape(tfused.NSI, -1, 128))) * jnp.asarray(
+        gs.reshape(tfused.NSO, -1, 128))))(
+        jnp.asarray(sf.reshape(tfused.NSF, -1, 128)))
+    launches = (tfused.HITREC_BWD.launches, tfused.SHADE_BWD.launches)
+    h = torch.from_numpy(hf).requires_grad_(True)
+    out = tfused.hitrec_fused(h)
+    assert type(out.grad_fn).__name__ == "_HitrecFusedBackward"
+    (got_h,) = torch.autograd.grad(out, h, torch.from_numpy(gh))
+    s = torch.from_numpy(sf).requires_grad_(True)
+    out = tfused.shade_carry_fused(s, torch.from_numpy(si))
+    assert type(out.grad_fn).__name__ == "_ShadeFusedBackward"
+    (got_s,) = torch.autograd.grad(out, s, torch.from_numpy(gs))
+    # the jitted VJP of the interpret-mode kernel and the eager jax.vjp
+    # round differently on a few sphere lanes: a lane within VJP_TOL of the
+    # eager one counts as agreeing with the reference
+    want_h = np.asarray(want_h).reshape(tfused.NHF, R)
+    _, vjp = jax.vjp(jfused.hitrec_math, jnp.asarray(hf))
+    eager_h = np.asarray(vjp(jnp.asarray(gh))[0])
+    ill = checks.ill_conditioned_lanes(
+        torch.from_numpy(hf), tfused.hitrec_math(torch.from_numpy(hf))).numpy()
+    ill |= np.isclose(got_h.numpy(), eager_h, **checks.VJP_TOL).all(axis=0)
+    _assert_vjp_close(got_h.numpy(), want_h, ill)
+    _assert_vjp_close(got_s.numpy(),
+                      np.asarray(want_s).reshape(tfused.NSF, R))
+    # CPU tensors never reach the kernels
+    assert (tfused.HITREC_BWD.launches,
+            tfused.SHADE_BWD.launches) == launches
+
+
+def test_vjp_check_fails_wrong_kernels_on_train_step_cotangents(
+        monkeypatch, tmp_path):
+    """The VJP check on the cotangents of a train step's backward (the
+    flagship stand-in, 512 pixels at spb 2, 4 bounces), scaled to unit
+    size as the card checks scale them: it passes the plain VJP, and it
+    rejects a kernel that returns zeros or flips any gradient row's sign.
+    The last bounce's hit record gets a zero cotangent (with the
+    visibility shortcut its outputs feed no gradient): nothing to check."""
+    from sexy_raytracer_tpu_torch.diff.inverse import (
+        _loss_fn,
+        sample_tile_ids,
+    )
+    from sexy_raytracer_tpu_torch.diff.params import extract_params
+    from sexy_raytracer_tpu_torch.models import presets
+    from sexy_raytracer_tpu_torch.render.camera import Camera
+    from sexy_raytracer_tpu_torch.render.integrator import (
+        scene_no_emissive_tris,
+    )
+    from sexy_raytracer_tpu_torch.utils import rng
+
+    calls = {"hitrec": [], "shade": []}
+
+    def record(name, fn):
+        def run(*args):
+            calls[name].append(tuple(a.clone() for a in args))
+            return fn(*args)
+        return run
+
+    monkeypatch.setattr(tfused, "hitrec_bwd",
+                        record("hitrec", tfused.hitrec_bwd))
+    monkeypatch.setattr(tfused, "shade_bwd", record("shade", tfused.shade_bwd))
+    scene, cfg = presets.flagship_standin(n=2, height=72,
+                                          data_dir=str(tmp_path), device="cpu")
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in extract_params(scene).items()}
+    ids = torch.from_numpy(sample_tile_ids(np.random.default_rng(3),
+                                           cfg.width, cfg.height, 512))
+    loss = _loss_fn(params, scene,
+                    Camera.from_config(cfg.camera, cfg.aspect, device="cpu"),
+                    ids, torch.full((512, 3), 0.5), 0, rng.key(1),
+                    torch.tensor(cfg.background), width=cfg.width,
+                    height=cfg.height, spb=2, spp_total=2, max_bounce=4,
+                    method="auto",
+                    last_bounce_vis=scene_no_emissive_tris(scene))
+    torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    assert len(calls["hitrec"]) == len(calls["shade"]) == 4
+    hit_calls = [c for c in calls["hitrec"] if bool(c[1].any())]
+    assert len(hit_calls) == 3
+    for hf, g in hit_calls:
+        g = checks.unit_cotangent(g)
+        want = tfused.hitrec_vjp_plain(hf, g)
+        ill = checks.ill_conditioned_lanes(hf, tfused.hitrec_math(hf))
+        assert checks.vjp_outside(want.clone(), want, ill) == 0
+        assert checks.vjp_check_power(want, want, ill) > 0
+    for sf, si, g in calls["shade"]:
+        g = checks.unit_cotangent(g)
+        want = tfused.shade_vjp_plain(sf, si, g)
+        assert checks.vjp_outside(want.clone(), want) == 0
+        assert checks.vjp_check_power(want, want) > 0

@@ -79,7 +79,7 @@ def wavefront():
     jax_args = (jax.device_put(np_scene), org, dirs, times, keys,
                 jnp.asarray(bg, jnp.float32))
     torch_args = (
-        scene_from_numpy(np_scene),
+        scene_from_numpy(np_scene, "cpu"),
         *(torch.from_numpy(np.array(x)) for x in (org, dirs, times)),
         torch.from_numpy(np.asarray(jax.random.key_data(keys),
                                     np.int64)),
@@ -121,7 +121,8 @@ def test_standin_frame_matches_jax(tmp_path):
     jpresets._add_iron_and_metal(b, str(tmp_path))
     jscene = b.build(build_bvh=False)
     tscene, cfg = tpresets.flagship_standin(n=15, spp=2, height=24,
-                                            data_dir=str(tmp_path))
+                                            data_dir=str(tmp_path),
+                                            device="cpu")
     cfg = dataclasses.replace(cfg, width=32, height=24)
     want = j_render_image(jscene, cfg)
     got = t_render_image(tscene, cfg)
@@ -141,7 +142,8 @@ def test_checkpoint_resume_matches_uninterrupted(tmp_path):
     )
 
     scene, cfg = tpresets.flagship_standin(n=8, spp=3, height=8,
-                                           data_dir=str(tmp_path))
+                                           data_dir=str(tmp_path),
+                                           device="cpu")
     cfg = dataclasses.replace(cfg, width=16, height=8, rays_per_chunk=64,
                               samples_per_batch=2)
     full = render_accumulate(scene, cfg)
@@ -172,7 +174,8 @@ def test_port_renders_without_jax(tmp_path):
         from sexy_raytracer_tpu_torch.models import presets
         from sexy_raytracer_tpu_torch.render.renderer import render_image
         scene, cfg = presets.flagship_standin(n=8, spp=1, height=8,
-                                              data_dir=sys.argv[1])
+                                              data_dir=sys.argv[1],
+                                              device="cpu")
         cfg = dataclasses.replace(cfg, width=16, height=8)
         img = render_image(scene, cfg)
         assert img.shape == (8, 16, 3) and img.std() > 0, img

@@ -63,14 +63,15 @@ def _assert_same_scene(tscene, jscene, skip_bvh=False):
 
 def test_wavefront_scene_matches():
     jscene = _wavefront_scene(JBuilder).build(build_bvh=False, device=False)
-    tscene = _wavefront_scene(TBuilder).build(build_bvh=False)
+    tscene = _wavefront_scene(TBuilder).build(build_bvh=False, device="cpu")
     _assert_same_scene(tscene, jscene)
 
 
 def test_standin_mesh_scene_matches(tmp_path):
     jscene = _standin_builder(JBuilder, str(tmp_path)).build(
         build_bvh=False, device=False)
-    tscene = _standin_builder(TBuilder, str(tmp_path)).build(build_bvh=False)
+    tscene = _standin_builder(TBuilder, str(tmp_path)).build(
+        build_bvh=False, device="cpu")
     _assert_same_scene(tscene, jscene)
     assert tscene.num_triangles == 2 * 15 * 15
     assert tscene.cluster_min.shape[0] == 2   # two clusters of <= 256
@@ -79,7 +80,7 @@ def test_standin_mesh_scene_matches(tmp_path):
 def test_standin_faces_the_flagship_eye():
     b = TBuilder()
     tpresets.add_relief_mesh(b)
-    scene = b.build(build_bvh=False)
+    scene = b.build(build_bvh=False, device="cpu")
     assert scene.num_triangles == tpresets.CHIEF_TRIANGLES
     centroid = (scene.tri_v0 + scene.tri_v1 + scene.tri_v2) / 3.0
     to_eye = torch.tensor([0.0, 3.0, 5.0]) - centroid
@@ -88,14 +89,15 @@ def test_standin_faces_the_flagship_eye():
 
 def test_shirley_spheres_matches():
     jscene, jcfg = jpresets.shirley_spheres()
-    tscene, tcfg = tpresets.shirley_spheres()
+    tscene, tcfg = tpresets.shirley_spheres(device="cpu")
     _assert_same_scene(tscene, jscene, skip_bvh=True)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
 
 
 def test_rustediron_sentinels_match(tmp_path):
     jscene, jcfg = jpresets.rustediron_globe(data_dir=str(tmp_path))
-    tscene, tcfg = tpresets.rustediron_globe(data_dir=str(tmp_path))
+    tscene, tcfg = tpresets.rustediron_globe(data_dir=str(tmp_path),
+                                             device="cpu")
     _assert_same_scene(tscene, jscene, skip_bvh=True)
     # every iron map is the magenta missing-file sentinel (presets.py:37-39)
     magenta = (tscene.tex_color0 == torch.tensor([1.0, 0.0, 1.0])).all(dim=1)
@@ -106,17 +108,17 @@ def test_rustediron_sentinels_match(tmp_path):
 def test_scene_from_numpy_round_trip(tmp_path):
     jscene = _standin_builder(JBuilder, str(tmp_path)).build(
         build_bvh=False, device=False)
-    tscene = scene_from_numpy(jscene)
+    tscene = scene_from_numpy(jscene, "cpu")
     _assert_same_scene(tscene, jscene)
     back = scene_from_numpy({k: v.numpy() for k, v in
-                             tscene._asdict().items()})
+                             tscene._asdict().items()}, "cpu")
     _assert_same_scene(back, jscene)
     # a device scene carried across through jax.device_get
     dev_scene = _wavefront_scene(JBuilder).build(build_bvh=False)
-    _assert_same_scene(scene_from_numpy(jax.device_get(dev_scene)),
+    _assert_same_scene(scene_from_numpy(jax.device_get(dev_scene), "cpu"),
                        jax.device_get(dev_scene))
     with pytest.raises(KeyError):
-        scene_from_numpy({"tri_v0": np.zeros((0, 3), np.float32)})
+        scene_from_numpy({"tri_v0": np.zeros((0, 3), np.float32)}, "cpu")
 
 
 def test_bvh_build_is_not_ported():
