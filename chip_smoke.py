@@ -44,6 +44,27 @@ nonzero without a result line:
    per step find 3, occlusion 1, hit record 4, shade 4 and each backward
    kernel 4 times; every trained parameter must move and stay finite.
 
+7. the big scene, ``flagship_standin(n=389)``: 302,642 triangles in 1,183
+   clusters (past the resident find's 120,000-triangle limit and the
+   per-ray cull's 512 clusters), 74 superclusters of 16, its BVH built by
+   the native builder (name and time printed):
+   * the streamed find (kernel 8) against its plain version on the mid
+     chunk's bounce-1 wavefront (524,288 rays; timed with the plain
+     version and the bound) and on 8,192-ray sub-wavefronts of bounce 0
+     and bounce 1 where the primary rays hit the most triangles, and on
+     the fuzz wavefront; the brute-force find (kernel 9) on the bounce-1
+     sub-wavefront and the fuzz wavefront, and timed on the n = 39
+     stand-in with the mid chunk's 524,288 camera rays after a counted
+     run of its own path, ``find_hit(method="pallas_mxu")``; prim ids
+     equal or near ties;
+   * four referees (streamed, resident on block-culled lists, BVH,
+     bruteforce) agree on 65,536 tile-ordered primary rays, with kernel
+     1's and kernel 8's times at that shape;
+   * a counted 1280x720, ``BIG_SPP``-spp, 4-bounce frame: per chunk the
+     streamed find 3 times, occlusion once, hit record and shade 4 times,
+     no other kernel; finite, repeatable, at least 5% of primary rays on
+     a triangle; its time and Mrays/s.
+
 The last three lines are the kernels' JSON record, nvidia-smi's
 "name, power.limit" line, and ``{"ok": true, "device": {...}}``.
 """
@@ -69,6 +90,11 @@ F32_FLOPS_PER_S = 67e12
 # multiplies, adds, subtractions, negations and the divide
 OPS_PER_PAIR = 37
 OPS_PER_SPHERE_TEST = 31
+# kernel 9 (csrc/find.cu tri_brute_kernel): two 4-deep products for each
+# of four column groups (56), the negation and divide, three edges (6)
+OPS_PER_BRUTE_PAIR = 64
+# the big scene: the tools/profile.py terrain, 2 * 389^2 triangles
+BIG_N, BIG_SPP = 389, 8
 TRAIN_PIXELS, TRAIN_SPB = 32768, 4          # bench.py:204-205
 
 
@@ -158,9 +184,9 @@ def main(argv=None) -> int:
                                                   "chip_smoke_720p.png"),
                     help="where to write the frame (PNG)")
     ap.add_argument("--profile", default=None,
-                    help="also profile one frame chunk and one train step "
-                         "with torch.profiler and write their per-kernel "
-                         "tables here")
+                    help="also profile one frame chunk, one train step and "
+                         "one chunk of the big frame with torch.profiler "
+                         "and write their per-kernel tables here")
     args = ap.parse_args(argv)
 
     import torch
@@ -180,8 +206,15 @@ def main(argv=None) -> int:
         extract_params,
     )
     from sexy_raytracer_tpu_torch import checks
-    from sexy_raytracer_tpu_torch.models import presets
-    from sexy_raytracer_tpu_torch.ops import _cuda, find, fused, histogram
+    from sexy_raytracer_tpu_torch.models import bvh, presets
+    from sexy_raytracer_tpu_torch.ops import (
+        _cuda,
+        brute,
+        find,
+        fused,
+        histogram,
+        intersect,
+    )
     from sexy_raytracer_tpu_torch.ops.intersect import find_hit
     from sexy_raytracer_tpu_torch.render import integrator, renderer
     from sexy_raytracer_tpu_torch.render.camera import Camera
@@ -460,17 +493,20 @@ def main(argv=None) -> int:
     def bytes_of(*tensors, out=()):
         return sum(t.numel() * t.element_size() for t in (*tensors, *out))
 
-    def find_pairs(closest, lists, rays, tri, sph, n):
+    def find_pairs(closest, lists, rays, tri, sph, n,
+                   ray_block=find.RAY_BLOCK, group=1):
         """(ray, triangle) tests a find kernel makes on these inputs: the
-        walk of ``find_closest_plain`` / ``find_any_plain``, counting each
-        lane of a block for every tile the block visits (closest hit), or
-        each live lane up to its first occluder (any hit)."""
-        RB, BIG = find.RAY_BLOCK, find._BIG
-        nc, ck = tri.shape[0], tri.shape[2]
+        walk of ``find_closest_plain`` / ``find_any_plain`` /
+        ``find_streamed_plain`` (``group`` tiles of ``tri`` per list
+        entry), counting each lane of a block for every tile the block
+        visits (closest hit), or each live lane up to its first occluder
+        (any hit)."""
+        RB, BIG = ray_block, find._BIG
+        nc, ck = tri.shape[0] // group, tri.shape[2]
         if n == 0 or nc == 0:
             return 0
         pairs = 0
-        for b0, b1 in find._block_chunks(rays.shape[0] // RB, tri):
+        for b0, b1 in find._block_chunks(rays.shape[0] // RB, tri, RB):
             rb = rays[b0 * RB:b1 * RB]
             tc = find._sphere_tc(rb, sph)
             if closest:
@@ -488,20 +524,21 @@ def main(argv=None) -> int:
                 blk = active.nonzero().squeeze(1)
                 if blk.numel() == 0:
                     break
-                t, valid = find._tile_t(tri[lst[blk, 1 + k].long()],
-                                        rays_b[blk])
-                if closest:
-                    pairs += t.numel()
-                    tile_t = torch.where(valid, t, BIG).amin(dim=2)
-                    bnd[blk] = torch.minimum(bnd[blk], tile_t)
-                else:
-                    hits = valid & (t < bnd[blk][..., None])
-                    hit = hits.any(dim=2)
-                    first = hits.to(torch.int32).argmax(dim=2) + 1
-                    tested = torch.where(hit, first, ck)
-                    pairs += int(torch.where(bnd[blk] > -BIG, tested, 0)
-                                 .sum())
-                    bnd[blk] = torch.where(hit, -BIG, bnd[blk])
+                for g in range(group):
+                    t, valid = find._tile_t(
+                        tri[lst[blk, 1 + k].long() * group + g], rays_b[blk])
+                    if closest:
+                        pairs += t.numel()
+                        tile_t = torch.where(valid, t, BIG).amin(dim=2)
+                        bnd[blk] = torch.minimum(bnd[blk], tile_t)
+                    else:
+                        hits = valid & (t < bnd[blk][..., None])
+                        hit = hits.any(dim=2)
+                        first = hits.to(torch.int32).argmax(dim=2) + 1
+                        tested = torch.where(hit, first, ck)
+                        pairs += int(torch.where(bnd[blk] > -BIG, tested, 0)
+                                     .sum())
+                        bnd[blk] = torch.where(hit, -BIG, bnd[blk])
         return pairs
 
     def find_bound(name, inp):
@@ -551,49 +588,64 @@ def main(argv=None) -> int:
                             histogram.dense_histogram_plain,
                             histogram.HISTOGRAM, histogram_bound),
     }
+    def check_only(name, inp, check, label):
+        """Hold a kernel to its plain version on ``inp``; log one line."""
+        err, _, note = check(inp)
+        torch.cuda.synchronize()
+        log(f"kernel {name} [{label} {tuple(shape_of(name, inp))}]: "
+            f"max_abs_err {err:.3g}; {note}")
+
+    def shape_of(name, inp):
+        """The wavefront's shape: the stack for the fused kernels, the ray
+        table (or the histogram's values) for the others."""
+        return list(inp[0 if name.startswith(("hitrec", "shade")) else 1]
+                    .shape)
+
+    def record(name, handle, inp, check, kern, plain, bound_of, label,
+               reps=20, plain_reps=5, library=None):
+        """Hold a kernel to its plain version on ``inp``, time both (and
+        ``library``, the one PyTorch call for the same function, where
+        there is one) with CUDA events, compute the bound; log one line and
+        return the kernel's record."""
+        err, mismatches, note = check(inp)
+        torch.cuda.synchronize()
+        ms = time_ms(torch, lambda: kern(*inp), reps)
+        plain_ms = time_ms(torch, lambda: plain(*inp), plain_reps)
+        lib_ms = None if library is None else time_ms(torch, library, reps)
+        n_bytes, n_ops, work = bound_of(inp)
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        shape = shape_of(name, inp)
+        log(f"kernel {name} [{label} {tuple(shape)}]: max_abs_err {err:.3g}; "
+            f"{note}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms"
+            + ("" if lib_ms is None else f", library {lib_ms:.4f} ms")
+            + f", bound {bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.1f} "
+              f"MB, {n_ops / 1e6:.1f} M ops: {work}) (median, CUDA events, "
+              f"{smi})")
+        return dict(name=name, route="cuda", source=handle.source,
+                    replaces=handle.replaces.split(" ")[0], launches=None,
+                    max_abs_err=err, mismatches=mismatches, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=lib_ms, shape=shape, case=label)
+
     records = {}
     for name, (check, kern, plain, handle, bound_of) in \
             kernel_checks.items():
-        cases = [("main", main_inputs), ("fuzz", fuzz_inputs)]
-        if name == "dense_histogram":
-            cases.append(("wide", {name: wide_inputs}))
-        for label, inputs in cases:
-            inp = inputs[name]
-            err, mismatches, note = check(inp)
-            torch.cuda.synchronize()
-            shape = tuple(inp[1].shape) if name.startswith(("find", "dense")) \
-                else tuple(inp[0].shape)
-            line = f"kernel {name} [{label} {shape}]: max_abs_err {err:.3g}; " \
-                   f"{note}"
-            if label in ("main", "wide"):
-                ms = time_ms(torch, lambda: kern(*inp), 20)
-                plain_ms = time_ms(torch, lambda: plain(*inp), 5)
-                lib_ms = time_ms(torch, library_histogram(*inp), 20) \
-                    if name == "dense_histogram" else None
-                n_bytes, n_ops, work = bound_of(inp)
-                t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-                t_ops = n_ops / F32_FLOPS_PER_S * 1e3
-                bound_ms = max(t_bytes, t_ops)
-                bound_by = "bytes" if t_bytes >= t_ops else "operations"
-                line += f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms" \
-                        + ("" if lib_ms is None else
-                           f", library {lib_ms:.4f} ms") \
-                        + f", bound {bound_ms:.4f} ms by {bound_by} " \
-                          f"({n_bytes / 1e6:.1f} MB, {n_ops / 1e6:.1f} M " \
-                          f"ops: {work}) (median, CUDA events, {smi})"
-                rec = dict(
-                    name=name, route="cuda", source=handle.source,
-                    replaces=handle.replaces.split(" ")[0],
-                    launches=None, max_abs_err=err, mismatches=mismatches,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=lib_ms, shape=list(shape))
-                if label == "main":
-                    records[name] = rec
-                else:
-                    records[name]["wide"] = {k: rec[k] for k in (
-                        "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")}
-            log(line)
+        hist = name == "dense_histogram"
+        inp = main_inputs[name]
+        records[name] = record(
+            name, handle, inp, check, kern, plain, bound_of, "main",
+            library=library_histogram(*inp) if hist else None)
+        check_only(name, fuzz_inputs[name], check, "fuzz")
+        if hist:
+            wide = record(name, handle, wide_inputs, check, kern, plain,
+                          bound_of, "wide",
+                          library=library_histogram(*wide_inputs))
+            records[name]["wide"] = {k: wide[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
     del main_inputs, fuzz_inputs, wide_inputs
 
     def reset_counts():
@@ -613,9 +665,9 @@ def main(argv=None) -> int:
     seconds = time.perf_counter() - t0
     counts = read_counts()
 
-    expect = {"srt_find_closest": 3 * n_chunks, "srt_find_any": n_chunks,
-              "srt_hitrec": 4 * n_chunks, "srt_shade": 4 * n_chunks,
-              "srt_hitrec_bwd": 0, "srt_shade_bwd": 0, "srt_histogram": 0}
+    expect = {k.symbol: 0 for k in _cuda.KERNELS}
+    expect.update({"srt_find_closest": 3 * n_chunks, "srt_find_any": n_chunks,
+                   "srt_hitrec": 4 * n_chunks, "srt_shade": 4 * n_chunks})
     log(f"frame launches: {counts} (expected {expect})")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
@@ -712,10 +764,12 @@ def main(argv=None) -> int:
     step_s = (time.perf_counter() - t0) / n_steps
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    expect = {"srt_find_closest": 3 * n_steps, "srt_find_any": n_steps,
-              "srt_hitrec": 4 * n_steps, "srt_shade": 4 * n_steps,
-              "srt_hitrec_bwd": 4 * n_steps, "srt_shade_bwd": 4 * n_steps,
-              "srt_histogram": 4 * n_steps}
+    expect = {k.symbol: 0 for k in _cuda.KERNELS}
+    expect.update({"srt_find_closest": 3 * n_steps, "srt_find_any": n_steps,
+                   "srt_hitrec": 4 * n_steps, "srt_shade": 4 * n_steps,
+                   "srt_hitrec_bwd": 4 * n_steps,
+                   "srt_shade_bwd": 4 * n_steps,
+                   "srt_histogram": 4 * n_steps})
     log(f"train launches over {n_steps} steps: {counts} (expected {expect})")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
@@ -742,6 +796,266 @@ def main(argv=None) -> int:
         f"{cfg.max_bounce} bounces, mean of {n_steps} steps, host clock); "
         f"peak memory {peak / 2**20:.1f} MiB; {smi}")
 
+
+    # ---- 7. the big scene -----------------------------------------------
+    # the tools/profile.py terrain size: 302,642 triangles, past the
+    # resident find's limit and the per-ray cull's
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as no_assets:
+        big, big_cfg = presets.flagship_standin(
+            n=BIG_N, spp=BIG_SPP, height=720, data_dir=no_assets, device=dev)
+    scene_s = time.perf_counter() - t0
+    TB = big.num_triangles
+    n_prims = TB + big.num_spheres
+    builder = bvh.builder_for(n_prims)
+    t0 = time.perf_counter()
+    tree = bvh.build_bvh(big)
+    bvh_s = time.perf_counter() - t0
+    big = big._replace(**{
+        f"bvh_{k}": torch.from_numpy(getattr(tree, v)).to(dev) for k, v in
+        (("min", "node_min"), ("max", "node_max"), ("left", "left"),
+         ("right", "right"), ("skip", "skip"))})
+    NCB = big.cluster_min.shape[0]
+    if TB <= intersect.PALLAS_RESIDENT_MAX_TRIS \
+            or NCB <= find.PER_RAY_CULL_MAX_CLUSTERS:
+        raise AssertionError("the big scene is not past the resident limits")
+    big_spb = min(big_cfg.samples_per_batch, BIG_SPP)
+    big_chunk = min(big_cfg.rays_per_chunk // big_spb, P)
+    big_chunks = -(-P // big_chunk)
+
+    def camera_rays(pixel_ids, n_samples):
+        """The primary rays render_pixels traces for these pixels."""
+        pid = pixel_ids.repeat_interleave(n_samples)
+        sid = torch.arange(n_samples, dtype=torch.int32,
+                           device=dev).repeat(pixel_ids.shape[0])
+        k = rng.ray_keys_2d(base_key, pid, sid)
+        uc = rng.per_ray_uniform_block(k, 5)
+        u = ((pid % W).float() + uc[:, 0]) / (W - 1)
+        v = ((H - (pid // W).float()) + uc[:, 1]) / (H - 1)
+        return camera.get_rays(u, v, uc[:, 2:5])
+
+    # 7.1 kernels 8 and 9 against their plain versions
+    big_ids = torch.from_numpy(order[mid:mid + big_chunk]).to(dev)
+    streamed_calls = capture_calls([find], ["find_streamed"], lambda: (
+        renderer.render_pixels(
+            big, camera, big_ids, 0, base_key, background, width=W,
+            height=H, spb=big_spb, spp_total=BIG_SPP,
+            max_bounce=big_cfg.max_bounce, last_bounce_vis=True)
+    ))["find_streamed"]
+    _, _, slabs, _, _, sc = streamed_calls[0]
+    NS = slabs.shape[0]
+    log(f"big scene: flagship stand-in n={BIG_N}, {TB} triangles in {NCB} "
+        f"clusters, {NS} superclusters of {sc}; scene built in "
+        f"{scene_s:.2f} s; BVH of {tree.left.shape[0]} nodes by the "
+        f"{builder} builder in {bvh_s:.3f} s; {W}x{H}, {BIG_SPP} spp, "
+        f"{big_chunk * big_spb} paths per chunk, {big_chunks} chunks")
+
+    # sub-wavefronts of SUB rays: the run of blocks whose primary rays hit
+    # the most triangles, at bounce 0 and at bounce 1 (the plain versions
+    # are slow), and the fuzz wavefront
+    SUB = 8192
+    RBS = find.STREAM_RAY_BLOCK
+    nbs = SUB // RBS
+    _, p0 = find.find_streamed(*streamed_calls[0])
+    on_tri = ((p0 >= 0) & (p0 < TB)).reshape(-1, RBS).sum(dim=1)
+    b0 = int(on_tri.unfold(0, nbs, 1).sum(dim=1).argmax())
+
+    def sub_streamed(call):
+        lists, rays, slabs_, sph, n, sc_ = call
+        return (lists[b0:b0 + nbs].contiguous(),
+                rays[b0 * RBS:(b0 + nbs) * RBS].contiguous(),
+                slabs_, sph, n, sc_)
+
+    fuzz_t_min = torch.full((4096,), 0.001, device=dev)
+    streamed_cases = [
+        ("bounce 0", sub_streamed(streamed_calls[0])),
+        ("bounce 1", sub_streamed(streamed_calls[1])),
+        ("fuzz", find.streamed_inputs(big, fo, fd, ft, fuzz_t_min)),
+    ]
+
+    def check_find_streamed(inp):
+        t_k, p_k = find.find_streamed(*inp)
+        t_p, p_p = find.find_streamed_plain(*inp)
+        dis = p_k != p_p
+        n_dis = int(dis.sum())
+        if n_dis and not bool(near_tie(t_k[dis], t_p[dis]).all()):
+            raise AssertionError(f"find_streamed: {n_dis} prim ids differ "
+                                 f"beyond the near-tie rule ({FIND_TIE})")
+        same = ~dis & (p_k >= 0)
+        err = float((t_k[same] - t_p[same]).abs().max()) if same.any() \
+            else 0.0
+        return err, n_dis, f"{n_dis} of {p_k.numel()} prim ids differ " \
+                           f"(near ties), {int((p_k >= 0).sum())} hits, " \
+                           f"{int(((p_k >= 0) & (p_k < TB)).sum())} on " \
+                           f"triangles"
+
+    def streamed_bound(inp):
+        lists, rays, slabs_, sph, n, sc_ = inp
+        tiles = slabs_.reshape(-1, 16, slabs_.shape[2])
+        pairs = find_pairs(True, lists, rays, tiles, sph, n,
+                           find.STREAM_RAY_BLOCK, sc_)
+        fetched = pairs // find.STREAM_RAY_BLOCK * 64
+        ops = pairs * OPS_PER_PAIR \
+            + rays.shape[0] * sph.shape[0] * OPS_PER_SPHERE_TEST
+        return bytes_of(lists, rays, slabs_, sph) + rays.shape[0] * 8, ops, \
+            f"{pairs} (ray, triangle) tests; the blocks fetch " \
+            f"{fetched / 1e6:.1f} MB of tiles"
+
+    def check_tri_brute(inp):
+        t_k, i_k = brute.tri_brute(*inp)
+        t_p, i_p = brute.tri_brute_plain(*inp)
+        dis = i_k != i_p
+        n_dis = int(dis.sum())
+        if n_dis and not bool(near_tie(t_k[dis], t_p[dis]).all()):
+            raise AssertionError(f"tri_brute: {n_dis} ids differ beyond the "
+                                 f"near-tie rule ({FIND_TIE})")
+        same = ~dis & (i_k >= 0)
+        err = float((t_k[same] - t_p[same]).abs().max()) if same.any() \
+            else 0.0
+        return err, n_dis, f"{n_dis} of {i_k.numel()} triangle ids differ " \
+                           f"(near ties), {int((i_k >= 0).sum())} hits"
+
+    def brute_bound(inp):
+        org4, dir4, w, _ = inp
+        pairs = org4.shape[0] * (w.shape[1] // 4)
+        return bytes_of(org4, dir4, w) + org4.shape[0] * 8, \
+            pairs * OPS_PER_BRUTE_PAIR, f"{pairs} (ray, triangle) tests"
+
+    def brute_inputs(org, dir):
+        return (*brute.ray4(org, dir), brute.build_weights(big), 0.001)
+
+    # kernel 8 at the frame chunk's full width, bounce 1 (the main shape)
+    records["find_streamed"] = record(
+        "find_streamed", find.FIND_STREAMED, streamed_calls[1],
+        check_find_streamed, find.find_streamed, find.find_streamed_plain,
+        streamed_bound, "chunk bounce 1", 5, 1)
+    del streamed_calls
+    for label, inp in streamed_cases:
+        check_only("find_streamed", inp, check_find_streamed, label)
+    # kernel 9 on the big scene: the bounce-0 and fuzz rays checked, the
+    # bounce-1 rays checked and timed
+    sub_rays = {label: inp[1] for label, inp in streamed_cases[:2]}
+    check_only("tri_brute", brute_inputs(sub_rays["bounce 0"][:, 0:3],
+                                         sub_rays["bounce 0"][:, 3:6]),
+               check_tri_brute, "big bounce 0")
+    check_only("tri_brute", brute_inputs(fo, fd), check_tri_brute,
+               "big fuzz")
+    rec = record("tri_brute", brute.TRI_BRUTE,
+                 brute_inputs(sub_rays["bounce 1"][:, 0:3],
+                              sub_rays["bounce 1"][:, 3:6]),
+                 check_tri_brute, brute.tri_brute, brute.tri_brute_plain,
+                 brute_bound, "big bounce 1", 5, 3)
+    big_brute = {k: rec[k] for k in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    # kernel 9 where its comparison meant something: the n = 39 stand-in
+    # and the mid chunk's 524,288 camera rays, on its own path
+    # find_hit(method="pallas_mxu") with the launch counters read
+    o9, d9, t9 = camera_rays(ids, spb)
+    reset_counts()
+    p9, _ = find_hit(scene, o9, d9, t9, method="pallas_mxu")
+    counts9 = read_counts()
+    want9 = {k: 0 for k in counts9}
+    want9["srt_tri_brute"] = 1
+    log(f"pallas_mxu path launches: {counts9}")
+    if counts9 != want9:
+        raise AssertionError(f"launch counts {counts9} != {want9}")
+    inp9 = (*brute.ray4(o9, d9), brute.build_weights(scene), 0.001)
+    records["tri_brute"] = record("tri_brute", brute.TRI_BRUTE, inp9,
+                                  check_tri_brute, brute.tri_brute,
+                                  brute.tri_brute_plain, brute_bound,
+                                  "n=39 camera", 20, 3)
+    records["tri_brute"]["big"] = big_brute
+    records["tri_brute"]["launches_by_path"] = {
+        "pallas_mxu": counts9["srt_tri_brute"]}
+    records["tri_brute"]["launches"] = counts9["srt_tri_brute"]
+    p9_ref, _ = find_hit(scene, o9, d9, t9, method="pallas")
+    log(f"pallas_mxu vs pallas on those rays: "
+        f"{int((p9 != p9_ref).sum())} of {p9.numel()} prim ids differ "
+        f"(the edge forms differ, ops/brute.py)")
+    del o9, d9, t9, inp9, p9, p9_ref, streamed_cases, sub_rays
+
+    # 7.2 the referees agree on 65,536 tile-ordered primary rays
+    o_r, d_r, t_r = camera_rays(
+        torch.from_numpy(order[mid:mid + 65536]).to(dev), 1)
+    ref = {}
+    ref_s = {}
+    for method in ("streamed", "pallas", "bvh", "bruteforce"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref[method] = find_hit(big, o_r, d_r, t_r, method=method)
+        torch.cuda.synchronize()
+        ref_s[method] = time.perf_counter() - t0
+    p_ref, t_ref = ref["bruteforce"]
+    for method in ("streamed", "pallas", "bvh"):
+        p_m, t_m = ref[method]
+        dis = p_m != p_ref
+        if int(dis.sum()) and not bool(near_tie(t_m[dis], t_ref[dis]).all()):
+            raise AssertionError(f"find_hit({method}) disagrees with the "
+                                 "bruteforce referee beyond near ties")
+        log(f"referee {method}: {int(dis.sum())} of 65536 prim ids differ "
+            f"from bruteforce (near ties); {ref_s[method]:.3f} s")
+    cl = capture_calls([find], ["find_closest"], lambda: find_hit(
+        big, o_r, d_r, t_r, method="pallas"))["find_closest"][0]
+    st = find.streamed_inputs(big, o_r, d_r, t_r)
+    k1_ms = time_ms(torch, lambda: find.find_closest(*cl), 10)
+    k8_ms = time_ms(torch, lambda: find.find_streamed(*st), 10)
+    tri_hits = int(((p_ref >= 0) & (p_ref < TB)).sum())
+    log(f"65536 primary rays on {TB} triangles ({tri_hits} hit a triangle): "
+        f"find_closest (kernel 1, block-culled lists of {NCB} clusters) "
+        f"{k1_ms:.4f} ms, find_streamed (kernel 8, {NS} superclusters) "
+        f"{k8_ms:.4f} ms (median of 10, CUDA events, {smi})")
+    records["find_streamed"]["primary_65536"] = dict(
+        find_streamed_ms=k8_ms, find_closest_ms=k1_ms)
+    del ref, cl, st, o_r, d_r, t_r
+
+    # 7.3 the full-width frame, counted
+    reset_counts()
+    t0 = time.perf_counter()
+    img_big = renderer.render_image(big, big_cfg)
+    torch.cuda.synchronize()
+    big_seconds = time.perf_counter() - t0
+    counts = read_counts()
+    expect = {k: 0 for k in counts}
+    expect.update({"srt_find_streamed": 3 * big_chunks,
+                   "srt_find_any": big_chunks,
+                   "srt_hitrec": 4 * big_chunks,
+                   "srt_shade": 4 * big_chunks})
+    log(f"big frame launches: {counts} (expected {expect})")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    for name, sym in (("find_streamed", "srt_find_streamed"),
+                      ("tri_brute", "srt_tri_brute")):
+        records[name].setdefault("launches_by_path", {})["big_frame"] = \
+            counts[sym]
+    records["find_streamed"]["launches"] = counts["srt_find_streamed"]
+    for name, c in kernel_checks.items():
+        records[name]["launches_by_path"]["big_frame"] = counts[c[3].symbol]
+    t0 = time.perf_counter()
+    accum = renderer.render_accumulate(big, big_cfg)
+    torch.cuda.synchronize()
+    big_again = time.perf_counter() - t0
+    if not np.isfinite(accum).all():
+        raise AssertionError("non-finite radiance in the big frame")
+    if not np.array_equal(color.to_uint8(color.resolve(accum, BIG_SPP)),
+                          img_big):
+        raise AssertionError("a second big frame differs from the first")
+    if img_big.shape != (H, W, 3) or img_big.std() < 5.0:
+        raise AssertionError("big frame is constant or misshapen")
+    prim, _ = find_hit(big, o, d, tm)
+    big_share = float(((prim >= 0) & (prim < TB)).float().mean())
+    if big_share < 0.05:
+        raise AssertionError(f"only {100 * big_share:.2f}% of primary rays "
+                             "hit a triangle of the big scene (need >= 5%)")
+    big_paths = P * BIG_SPP
+    log(f"big frame: {W}x{H}, {BIG_SPP} spp, {big_cfg.max_bounce} bounces, "
+        f"{TB} triangles: {big_seconds:.3f} s, "
+        f"{big_paths * big_cfg.max_bounce / big_seconds / 1e6:.2f} Mrays/s "
+        f"(paths x {big_cfg.max_bounce}); repeat {big_again:.3f} s, "
+        f"identical; finite; mean {img_big.mean():.2f}, std "
+        f"{img_big.std():.2f}; primary rays hitting a triangle "
+        f"{100 * big_share:.2f}%; {smi}")
+    write_png(os.path.splitext(args.out)[0] + "_big.png", img_big)
+
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -765,8 +1079,19 @@ def main(argv=None) -> int:
                     f"{TRAIN_PIXELS * TRAIN_SPB} paths\n"
                     + prof.key_averages().table(sort_by="cuda_time_total",
                                                 row_limit=40) + "\n")
-        log(f"profiles of one chunk and one train step written to "
-            f"{args.profile}")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                renderer.render_pixels(
+                    big, camera, big_ids, 0, base_key, background, width=W,
+                    height=H, spb=big_spb, spp_total=BIG_SPP,
+                    max_bounce=big_cfg.max_bounce,
+                    last_bounce_vis=True).sum().item()
+            f.write(f"{kind}, {smi}: one {big_chunk * big_spb}-path chunk "
+                    f"of the big frame ({TB} triangles)\n"
+                    + prof.key_averages().table(sort_by="cuda_time_total",
+                                                row_limit=40) + "\n")
+        log(f"profiles of one chunk, one train step and one big-frame chunk "
+            f"written to {args.profile}")
 
     log(json.dumps({"kernels": list(records.values())}))
     log(smi)

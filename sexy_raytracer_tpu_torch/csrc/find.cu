@@ -1,9 +1,12 @@
-// Cluster-culled ray queries for Hopper: closest hit and any hit.
+// Ray queries for Hopper: cluster-culled closest hit and any hit, the
+// streamed big-scene closest hit, and the brute-force triangle search.
 //
-// Replaces the TPU kernels _find_kernel (sexy_raytracer_tpu/ops/pallas_find.py:170)
-// and _occluded_kernel (pallas_find.py:681). Layouts are documented in
-// sexy_raytracer_tpu_torch/ops/find.py; the plain PyTorch versions there are
-// the specification. Both kernels:
+// Replaces the TPU kernels _find_kernel (sexy_raytracer_tpu/ops/pallas_find.py:170),
+// _occluded_kernel (pallas_find.py:681), _find_streamed_kernel
+// (pallas_find.py:893) and _tri_kernel (ops/pallas_intersect.py:53). Layouts
+// are documented in sexy_raytracer_tpu_torch/ops/find.py and ops/brute.py;
+// the plain PyTorch versions there are the specification. The three
+// worklist kernels:
 //
 //   * run one block of RAY_BLOCK threads per worklist row, one thread per ray;
 //     the block reads its own worklist row (the TPU prefetched it to SMEM);
@@ -25,6 +28,9 @@
 namespace {
 
 constexpr int RAY_BLOCK = 128;
+constexpr int STREAM_BLOCK = 512;    // rays per block of the streamed find
+constexpr int BRUTE_BLOCK = 256;     // rays per block of the brute search
+constexpr int TRI_TILE = 512;        // triangles per tile of its weights
 constexpr int MAX_CK = 512;
 constexpr float BIG = (float)3.0e38;  // rounded from the double, as torch
 constexpr float EPS = 1.1920928955078125e-07f;  // FLT_EPSILON
@@ -190,6 +196,158 @@ find_any_kernel(const int* __restrict__ lists, int list_stride,
   out[r] = bound < 0.0f ? 1 : 0;
 }
 
+
+// --- streamed closest hit (big scenes) ---------------------------------------
+//
+// The worklist row of block b lists superclusters (sc consecutive clusters).
+// The block walks their tiles j = 0 .. count*sc - 1 in order through two
+// shared-memory buffers: cp.async copies tile j+1 while tile j is tested.
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Issue the copy of tile j of the block's worklist into buf.
+__device__ __forceinline__ void fetch_tile(float* buf,
+                                           const float* __restrict__ slabs,
+                                           const int* row, int j, int sc,
+                                           int ck) {
+  const int cid = row[1 + j / sc] * sc + j % sc;
+  const float* src = slabs + (size_t)cid * 16 * ck;
+  for (int i = threadIdx.x; i < 4 * ck; i += blockDim.x)
+    cp_async16(buf + 4 * i, src + 4 * i);
+}
+
+__global__ void __launch_bounds__(STREAM_BLOCK)
+find_streamed_kernel(const int* __restrict__ lists, int list_stride,
+                     const float* __restrict__ rays,
+                     const float* __restrict__ slabs, int n_supers, int sc,
+                     int ck, const float* __restrict__ sph_pack,
+                     int n_sph_pad, int n_tris, float* __restrict__ out_t,
+                     int* __restrict__ out_i) {
+  extern __shared__ __align__(16) float smem[];  // two [16, ck] tiles
+  const int b = blockIdx.x;
+  const int r = b * STREAM_BLOCK + threadIdx.x;
+  const Ray ray = load_ray(rays, r, 8);
+  const float a = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz;
+
+  // spheres first (pallas_find.py:94-133): the lowest index among the
+  // nearest roots; a triangle must be strictly nearer to replace it
+  float best_t = BIG;
+  int best_s = 0;
+  for (int s = 0; s < n_sph_pad; ++s) {
+    float tc = sphere_tc(sph_pack + 8 * s, ray, a);
+    if (tc < best_t) { best_t = tc; best_s = s; }
+  }
+  int best_i = best_t < BIG ? n_tris + best_s : -1;
+
+  if (n_tris > 0 && n_supers > 0) {
+    const int* row = lists + (size_t)b * list_stride;
+    const int n_tiles = row[0] * sc;
+    if (n_tiles > 0) fetch_tile(smem, slabs, row, 0, sc, ck);
+    cp_async_commit();
+    for (int j = 0; j < n_tiles; ++j) {
+      const int k = j / sc, c = j % sc;
+      // early out at a supercluster: continue while some lane's best t
+      // lies beyond its block-min entry distance (also the barrier after
+      // which the buffer of tile j-1 may be refilled)
+      if (c == 0 &&
+          !__syncthreads_or(__float_as_int(best_t) > row[1 + n_supers + k]))
+        break;
+      float* cur = smem + (j & 1) * 16 * ck;
+      if (j + 1 < n_tiles)
+        fetch_tile(smem + ((j + 1) & 1) * 16 * ck, slabs, row, j + 1, sc, ck);
+      cp_async_commit();
+      cp_async_wait_prior();  // tile j has landed (for this thread's copies)
+      __syncthreads();        // ... and for every thread's
+      const int base = (row[1 + k] * sc + c) * ck;
+      for (int jj = 0; jj < ck; ++jj) {
+        float t;
+        if (tri_hit(cur, ck, jj, ray, &t) && t < best_t) {
+          best_t = t;
+          best_i = base + jj;
+        }
+      }
+      __syncthreads();  // every thread is done with cur before its refill
+    }
+    cp_async_wait_all();  // no copy outlives the block
+  }
+  out_t[r] = best_t;
+  out_i[r] = best_t < BIG ? best_i : -1;
+}
+
+// --- brute-force closest triangle (pallas_intersect.py:53-95) ----------------
+//
+// w is [4, 4 Tpad], each TRI_TILE-triangle tile's columns grouped as
+// [n | q0 | q1 | q2]. One thread per ray; the block stages one tile's
+// [4, 4 TRI_TILE] weights (32 KB) at a time.
+
+__global__ void __launch_bounds__(BRUTE_BLOCK)
+tri_brute_kernel(const float* __restrict__ org4,
+                 const float* __restrict__ dir4, const float* __restrict__ w,
+                 int n_tiles, float t_min, float* __restrict__ out_t,
+                 int* __restrict__ out_i) {
+  __shared__ __align__(16) float ws[4 * 4 * TRI_TILE];
+  const int r = blockIdx.x * BRUTE_BLOCK + threadIdx.x;
+  const float ox = org4[4 * r], oy = org4[4 * r + 1], oz = org4[4 * r + 2],
+              ow = org4[4 * r + 3];
+  const float dx = dir4[4 * r], dy = dir4[4 * r + 1], dz = dir4[4 * r + 2],
+              dw = dir4[4 * r + 3];
+  const size_t width = (size_t)n_tiles * 4 * TRI_TILE;
+  constexpr int TW = 4 * TRI_TILE;  // columns of one tile
+
+  float best_t = BIG;
+  int best_i = -1;
+  for (int k = 0; k < n_tiles; ++k) {
+    __syncthreads();  // the previous tile is consumed
+    for (int i = threadIdx.x; i < TW; i += BRUTE_BLOCK) {  // float4 columns
+      const int row = i / (TW / 4), col = 4 * (i % (TW / 4));
+      *reinterpret_cast<float4*>(ws + row * TW + col) =
+          *reinterpret_cast<const float4*>(w + row * width +
+                                           (size_t)k * TW + col);
+    }
+    __syncthreads();
+    // strict '<' in column order: the lowest index wins a tie in a tile,
+    // the earlier tile wins a tie across tiles
+    for (int j = 0; j < TRI_TILE; ++j) {
+      float av[4], bv[4];
+      for (int g = 0; g < 4; ++g) {
+        const int col = g * TRI_TILE + j;
+        const float w0 = ws[col], w1 = ws[TW + col], w2 = ws[2 * TW + col],
+                    w3 = ws[3 * TW + col];
+        av[g] = ox * w0 + oy * w1 + oz * w2 + ow * w3;
+        bv[g] = dx * w0 + dy * w1 + dz * w2 + dw * w3;
+      }
+      const bool plane_ok = bv[0] <= -EPS;
+      const float t = -av[0] / (plane_ok ? bv[0] : 1.0f);
+      const bool valid = plane_ok && (av[1] + t * bv[1] >= 0.0f) &&
+                         (av[2] + t * bv[2] >= 0.0f) &&
+                         (av[3] + t * bv[3] >= 0.0f) && (t >= t_min);
+      if (valid && t < best_t) {
+        best_t = t;
+        best_i = k * TRI_TILE + j;
+      }
+    }
+  }
+  out_t[r] = best_t;
+  out_i[r] = best_t < BIG ? best_i : -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -223,6 +381,41 @@ int srt_find_any(const int* lists, int list_stride, const float* rays,
     find_any_kernel<<<n_blocks, RAY_BLOCK, 0, (cudaStream_t)stream>>>(
         lists, list_stride, rays, tri_pack, n_clusters, ck, sph_pack,
         n_sph_pad, n_tris, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int srt_find_streamed(const int* lists, int list_stride, const float* rays,
+                      const float* slabs, int n_supers, int sc, int ck,
+                      const float* sph_pack, int n_sph_pad, int n_tris,
+                      int ray_block, int n_blocks, float* out_t, int* out_i,
+                      void* stream) {
+  if (ray_block != STREAM_BLOCK || ck > MAX_CK || ck % 4 != 0 || sc < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 2 * 16 * ck * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        find_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_blocks > 0) {
+    find_streamed_kernel<<<n_blocks, STREAM_BLOCK, smem,
+                           (cudaStream_t)stream>>>(
+        lists, list_stride, rays, slabs, n_supers, sc, ck, sph_pack,
+        n_sph_pad, n_tris, out_t, out_i);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int srt_tri_brute(const float* org4, const float* dir4, const float* w,
+                  int n_tiles, float t_min, int ray_block, int n_blocks,
+                  float* out_t, int* out_i, void* stream) {
+  if (ray_block != BRUTE_BLOCK || n_tiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_blocks > 0) {
+    tri_brute_kernel<<<n_blocks, BRUTE_BLOCK, 0, (cudaStream_t)stream>>>(
+        org4, dir4, w, n_tiles, t_min, out_t, out_i);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from sexy_raytracer_tpu_torch.models.bvh import refit_bvh_device
 from sexy_raytracer_tpu_torch.models.clusters import cluster_bounds_device
 from sexy_raytracer_tpu_torch.models.scene import SceneData, prepare_triangles
 
@@ -41,9 +42,9 @@ def merge_params(scene: SceneData, params: dict) -> SceneData:
     """Rebuild a consistent scene from updated parameter tensors.
 
     Trained triangle vertices re-derive the triangle plane/edge pack and
-    the cluster cull boxes. Both feed only hit search, which is
-    stop-gradient, so they are derived detached. The BVH refit is not
-    ported: the port builds no BVH, and a scene that carries one raises.
+    the cluster cull boxes; trained triangles or spheres refit the BVH
+    bounds of a scene that carries one. All of these feed only hit search,
+    which is stop-gradient, so they are derived detached.
     """
     scene = scene._replace(**params)
     tri_geom = bool(_GEOMETRY_FIELDS & set(params))
@@ -59,7 +60,6 @@ def merge_params(scene: SceneData, params: dict) -> SceneData:
                     scene.tri_v0, scene.tri_v1, scene.tri_v2)
                 scene = scene._replace(cluster_min=cmin, cluster_max=cmax)
     if (tri_geom or sph_geom) and scene.bvh_min.shape[0] > 0:
-        raise NotImplementedError(
-            "the BVH refit is not ported yet (ROADMAP.md queue 1, big "
-            "scenes); the port's scenes carry no BVH")
+        bmin, bmax = refit_bvh_device(scene)
+        scene = scene._replace(bvh_min=bmin, bvh_max=bmax)
     return scene

@@ -134,19 +134,26 @@ def add_relief_mesh(b, n: int = 39) -> None:
 
 
 def flagship_standin(n: int = 39, spp: int = 8, height: int = 720,
-                     data_dir: str | None = None, device="cuda"):
+                     data_dir: str | None = None, device="cuda",
+                     build_bvh: bool = False):
     """The flagship scene with the relief mesh in place of Master Chief.
 
     Same composition order as ``masterchief`` (reference main.cpp:54-154):
     the mesh, then the ground and light, then the iron and mirror spheres,
-    under the flagship camera.
+    under the flagship camera. ``n = 389`` is the big scene: the
+    ``tools/profile.py`` terrain size, 302,642 triangles, past the resident
+    find's limit (``ops/intersect.PALLAS_RESIDENT_MAX_TRIS``).
+
+    No BVH by default: this preset has no JAX counterpart, its find
+    kernels need none, and with one every train step that moves a sphere
+    would refit it (``diff/params.merge_params``).
     """
     data_dir = data_dir or default_data_dir()
     b = SceneBuilder()
     add_relief_mesh(b, n)
     _add_ground_and_lights(b)
     _add_iron_and_metal(b, data_dir)
-    scene = b.build(build_bvh=False, device=device)
+    scene = b.build(build_bvh=build_bvh, device=device)
     cfg = RenderConfig(
         width=int(height * 16 / 9),
         height=height,
@@ -199,7 +206,7 @@ def shirley_spheres(seed: int = 4, spp: int = 16, height: int = 240,
     )
     b.add_sphere((4, 1, 0), 1.0, b.add_metal_material((0.7, 0.6, 0.5), 0.0))
 
-    scene = b.build(build_bvh=False, device=device)
+    scene = b.build(device=device)
     cfg = RenderConfig(
         width=int(height * 16 / 9),
         height=height,
@@ -223,7 +230,7 @@ def rustediron_globe(data_dir: str | None = None, spp: int = 64,
     b = SceneBuilder()
     _add_ground_and_lights(b)
     _add_iron_and_metal(b, data_dir)
-    scene = b.build(build_bvh=False, device=device)
+    scene = b.build(device=device)
     cfg = RenderConfig(
         width=int(height * 16 / 9),
         height=height,

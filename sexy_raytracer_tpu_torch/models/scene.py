@@ -3,7 +3,7 @@
 Counterpart of ``sexy_raytracer_tpu/models/scene.py``. The builder is a
 numpy copy of the JAX package's (that package cannot be imported where
 there is no JAX), and ``build()`` produces exactly the arrays the JAX
-``build(build_bvh=False, device=False)`` produces, as torch tensors under
+``build(device=False)`` produces, BVH included, as torch tensors under
 the same field names. ``scene_from_numpy`` carries a JAX scene across.
 
 The scene is a struct-of-arrays ``NamedTuple`` of tensors, mirroring the
@@ -14,11 +14,13 @@ intersection data.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from sexy_raytracer_tpu_torch.models.bvh import build_bvh as _build_bvh
 from sexy_raytracer_tpu_torch.models.clusters import triangle_order
 
 # Material kinds (reference material.h classes)
@@ -418,16 +420,20 @@ class SceneBuilder:
         card unless the caller asks for ``"cpu"``. Without a card the
         default raises torch's own error; there is no fallback.
 
-        The port has no BVH yet (its find kernel culls clusters, which
-        needs none): ``build_bvh=True`` raises, and the ``bvh_*`` fields
-        are empty.
+        ``build_bvh``: build the median-split BVH over every primitive
+        (``models/bvh.py``) into the ``bvh_*`` fields, as the JAX package
+        does by default. The find kernels cull clusters and need no BVH;
+        the skip-link traversal ``find_hit(method="bvh")`` does. Without
+        it, or for an empty scene, the ``bvh_*`` fields are empty.
         """
-        if build_bvh:
-            raise NotImplementedError(
-                "the BVH build is not ported yet (ROADMAP.md queue 1, big "
-                "scenes); call build(build_bvh=False)"
-            )
-        return scene_from_numpy(self._build_numpy(), device)
+        fields = self._build_numpy()
+        if build_bvh and (fields["tri_v0"].shape[0]
+                          + fields["sph_c0"].shape[0]) > 0:
+            bvh = _build_bvh(SimpleNamespace(**fields))
+            fields.update(bvh_min=bvh.node_min, bvh_max=bvh.node_max,
+                          bvh_left=bvh.left, bvh_right=bvh.right,
+                          bvh_skip=bvh.skip)
+        return scene_from_numpy(fields, device)
 
     def _build_numpy(self) -> dict:
         f32, i32 = np.float32, np.int32

@@ -121,12 +121,14 @@ class Kernel:
         KERNELS.append(self)
 
     def launch(self, device, *args) -> None:
-        """Call the entry with ``args`` (``ptr`` values and ints) plus the
-        current stream of ``device``; raise if the launch failed."""
+        """Call the entry with ``args`` (``ptr`` values, ints and Python
+        floats, passed as C floats) plus the current stream of ``device``;
+        raise if the launch failed."""
         import torch
 
-        cargs = [a if isinstance(a, ctypes.c_void_p) else ctypes.c_int(a)
-                 for a in args]
+        cargs = [a if isinstance(a, ctypes.c_void_p)
+                 else ctypes.c_float(a) if isinstance(a, float)
+                 else ctypes.c_int(a) for a in args]
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             fn = getattr(library(), self.symbol)

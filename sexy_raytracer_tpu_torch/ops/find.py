@@ -1,7 +1,7 @@
 """Cluster-culled closest-hit and any-hit search (counterpart of
-``sexy_raytracer_tpu/ops/pallas_find.py:235-886``).
+``sexy_raytracer_tpu/ops/pallas_find.py:235-1109``).
 
-Two kernels, each with a plain PyTorch version beside it:
+Three kernels, each with a plain PyTorch version beside it:
 
 * ``find_closest`` replaces the TPU's ``_find_kernel`` (pallas_find.py:170,
   via ``find_hit_clustered`` :521): the closest hit per ray over its ray
@@ -10,8 +10,12 @@ Two kernels, each with a plain PyTorch version beside it:
 * ``find_any`` replaces ``_occluded_kernel`` (pallas_find.py:681, via
   ``find_occluded`` :765): is there a non-emissive primitive with t in
   [t_min, t_bound)? Lanes die on their first occluder.
+* ``find_streamed`` replaces ``_find_streamed_kernel`` (pallas_find.py:893,
+  via ``find_hit_streamed`` :980): the closest hit for big scenes, over
+  worklists of superclusters (``SUPER_CLUSTERS`` consecutive clusters)
+  from the per-block interval cull ``cluster_lists_block``.
 
-Both wrappers launch the CUDA kernel (csrc/find.cu) on CUDA tensors and
+The wrappers launch the CUDA kernel (csrc/find.cu) on CUDA tensors and
 run the plain version on CPU tensors; there is no fallback between them.
 
 Data layout (the TPU kernel's, so that inputs compare one to one):
@@ -36,7 +40,10 @@ from __future__ import annotations
 
 import torch
 
-from sexy_raytracer_tpu_torch.models.clusters import CLUSTER_SIZE
+from sexy_raytracer_tpu_torch.models.clusters import (
+    CLUSTER_SIZE,
+    cluster_bounds_device,
+)
 from sexy_raytracer_tpu_torch.ops import _cuda
 from sexy_raytracer_tpu_torch.ops.intersect import (
     _per_ray_t_min,
@@ -56,6 +63,12 @@ PER_RAY_CULL_MAX_CLUSTERS = 512
 # Elements of one [blocks, RAY_BLOCK, CK] intermediate of the plain find;
 # bounds its memory at large wavefronts.
 _PLAIN_CHUNK_ELEMS = 1 << 24
+# The streamed big-scene find (pallas_find.py:75-76,1011): clusters per
+# supercluster, doubled while there would be more than MAX_SUPERS of them,
+# and rays per block (max(RAY_BLOCK, 512) in the JAX package).
+SUPER_CLUSTERS = 16
+MAX_SUPERS = 1024
+STREAM_RAY_BLOCK = 512
 
 FIND_CLOSEST = _cuda.Kernel(
     "srt_find_closest", source="sexy_raytracer_tpu_torch/csrc/find.cu",
@@ -64,6 +77,11 @@ FIND_CLOSEST = _cuda.Kernel(
 FIND_ANY = _cuda.Kernel(
     "srt_find_any", source="sexy_raytracer_tpu_torch/csrc/find.cu",
     replaces="sexy_raytracer_tpu/ops/pallas_find.py:681 (_occluded_kernel)",
+)
+FIND_STREAMED = _cuda.Kernel(
+    "srt_find_streamed", source="sexy_raytracer_tpu_torch/csrc/find.cu",
+    replaces="sexy_raytracer_tpu/ops/pallas_find.py:893 "
+             "(_find_streamed_kernel)",
 )
 
 
@@ -192,13 +210,102 @@ def _lists_with_entries(count, order, entry):
 
 def cluster_lists_block(org, dir, t_min, cmin, cmax, t_max=None,
                         ray_block=RAY_BLOCK):
-    """The per-block interval cull for scenes past
-    ``PER_RAY_CULL_MAX_CLUSTERS`` clusters (pallas_find.py:389)."""
-    raise NotImplementedError(
-        f"scenes with more than {PER_RAY_CULL_MAX_CLUSTERS} triangle "
-        "clusters need the per-block interval cull, which is not ported "
-        "yet (ROADMAP.md queue 1, big scenes)"
-    )
+    """Per-block *interval* cull (pallas_find.py:389-514): O(NB x NC), no
+    per-ray blowup; the lists of scenes past ``PER_RAY_CULL_MAX_CLUSTERS``
+    clusters and of the streamed find's superclusters.
+
+    Each ray block is summarized by its origin AABB, per-component
+    direction range and t bounds; the slab test then runs in interval
+    arithmetic: if ANY (origin, direction) in the block's bounds could
+    enter the box, the box is active. Strictly conservative (a superset
+    of the exact per-ray cull's actives), so hits are never lost. The
+    formulas and their order are JAX's: the ``d -> 0+`` cases, ``eps``,
+    the ``zero_ok`` straddle and ``dead_block`` keep the cull
+    conservative, and ``torch.minimum``/``maximum`` propagate NaN as
+    ``jnp`` does.
+    """
+    R = org.shape[0]
+    nb = -(-R // ray_block)
+    pad_r = nb * ray_block - R
+
+    alive = (t_min < _BIG)[:, None]
+    o_lo = torch.where(alive, org, _BIG)
+    o_hi = torch.where(alive, org, -_BIG)
+    d_lo = torch.where(alive, dir, _BIG)
+    d_hi = torch.where(alive, dir, -_BIG)
+    tmin_b = torch.where(alive[:, 0], t_min, _BIG)
+    if t_max is not None:
+        tmax_r = torch.where(alive[:, 0], t_max, -_BIG)
+    else:
+        tmax_r = torch.where(alive[:, 0], _BIG, -_BIG)
+    pad = torch.nn.functional.pad
+    if pad_r:
+        o_lo = pad(o_lo, (0, 0, 0, pad_r), value=_BIG)
+        o_hi = pad(o_hi, (0, 0, 0, pad_r), value=-_BIG)
+        d_lo = pad(d_lo, (0, 0, 0, pad_r), value=_BIG)
+        d_hi = pad(d_hi, (0, 0, 0, pad_r), value=-_BIG)
+        tmin_b = pad(tmin_b, (0, pad_r), value=_BIG)
+        tmax_r = pad(tmax_r, (0, pad_r), value=-_BIG)
+
+    o_lo = o_lo.reshape(nb, ray_block, 3).amin(dim=1)     # [NB, 3]
+    o_hi = o_hi.reshape(nb, ray_block, 3).amax(dim=1)
+    d_lo = d_lo.reshape(nb, ray_block, 3).amin(dim=1)
+    d_hi = d_hi.reshape(nb, ray_block, 3).amax(dim=1)
+    t0 = tmin_b.reshape(nb, ray_block).amin(dim=1)        # [NB]
+    t1 = tmax_r.reshape(nb, ray_block).amax(dim=1)
+    dead_block = t0 >= _BIG
+
+    # per (block, box, axis): a = cmin - o >= a_lo, b = cmax - o <= b_hi,
+    # direction d in [dl, dh]
+    a_lo = cmin[None] - o_hi[:, None]                     # [NB, NC, 3]
+    b_hi = cmax[None] - o_lo[:, None]
+    dl = d_lo[:, None]
+    dh = d_hi[:, None]
+    eps = torch.tensor(1e-30, device=org.device)
+    mx, mn, where = torch.maximum, torch.minimum, torch.where
+
+    def div(num, den):
+        return num / mx(den, eps)
+
+    # earliest entry / latest exit on each axis over the interval box; an
+    # entry minimum must allow d -> 0+ blowing the quotient to -inf when
+    # the numerator can be negative (origin range straddles the slab)
+    pos_ok = dh > 0.0
+    ent_pos = where(
+        pos_ok,
+        where(a_lo >= 0.0, div(a_lo, dh),
+              where(dl > 0.0, div(a_lo, dl), -_BIG)),
+        _BIG)
+    ext_pos = where(
+        pos_ok,
+        where(b_hi >= 0.0, div(b_hi, mx(dl, eps)), div(b_hi, dh)),
+        -_BIG)
+    # negative directions enter at the cmax side; with m = -d in (0, -dl],
+    # entry = (-b) / m, exit = (-a) / m
+    neg_ok = dl < 0.0
+    ent_neg = where(
+        neg_ok,
+        where(-b_hi >= 0.0, div(-b_hi, -dl),
+              where(dh < 0.0, div(-b_hi, -dh), -_BIG)),
+        _BIG)
+    ext_neg = where(
+        neg_ok,
+        where(a_lo <= 0.0, div(-a_lo, mx(-dh, eps)), div(-a_lo, -dl)),
+        -_BIG)
+    # zero-direction possibility: the slab overlaps the origin range
+    zero_ok = (dl <= 0.0) & (dh >= 0.0) & (a_lo <= 0.0) & (b_hi >= 0.0)
+    ent = where(zero_ok, -_BIG, mn(ent_pos, ent_neg))
+    ext = where(zero_ok, _BIG, mx(ext_pos, ext_neg))
+
+    t_near = mx(ent.amax(dim=-1), t0[:, None])            # [NB, NC]
+    t_far = ext.amin(dim=-1)
+    hit = (t_far > t_near) & (t_near < t1[:, None])
+    hit &= ~dead_block[:, None]
+
+    count = hit.sum(dim=1, dtype=torch.int32)
+    entry = where(hit, t_near, _BIG)
+    order = torch.sort(entry, dim=1, stable=True).indices
+    return _lists_with_entries(count, order, entry)
 
 
 def _uncull_lists(nb, nc, device):
@@ -210,12 +317,12 @@ def _uncull_lists(nb, nc, device):
     ).contiguous()
 
 
-def _ray_table(columns, pad_values):
+def _ray_table(columns, pad_values, ray_block=RAY_BLOCK):
     """[R] columns -> [Rpad, K] float32 ray table padded to whole blocks."""
     rays = torch.stack([c.to(torch.float32) for c in columns], dim=1)
     R = rays.shape[0]
-    nb = -(-R // RAY_BLOCK)
-    pad = nb * RAY_BLOCK - R
+    nb = -(-R // ray_block)
+    pad = nb * ray_block - R
     if pad:
         fill = torch.zeros((pad, rays.shape[1]), device=rays.device)
         for col, value in pad_values.items():
@@ -386,9 +493,9 @@ def _worst_bits(x):
     return x.view(torch.int32).amax(dim=1)
 
 
-def _block_chunks(nb, tri_pack):
-    ck = max(tri_pack.shape[2], 1)
-    step = max(1, _PLAIN_CHUNK_ELEMS // (RAY_BLOCK * ck))
+def _block_chunks(nb, tri_pack, ray_block=RAY_BLOCK):
+    ck = max(tri_pack.shape[-1], 1)
+    step = max(1, _PLAIN_CHUNK_ELEMS // (ray_block * ck))
     return [(b0, min(nb, b0 + step)) for b0 in range(0, nb, step)]
 
 
@@ -396,48 +503,206 @@ def find_closest_plain(lists, rays, tri_pack, sph_pack, n_tris):
     """Plain PyTorch version of ``find_closest``: the same worklists, tile
     order, early out and tie rule (lowest id within a tile, the earlier
     tile across tiles), vectorized over ray blocks."""
+    return _closest_walk(lists, rays, tri_pack, sph_pack, n_tris,
+                         RAY_BLOCK, 1)
+
+
+def _closest_walk(lists, rays, tiles, sph_pack, n_tris, ray_block, group):
+    """The closest-hit walk of both find kernels: spheres first, then each
+    block's list entries front to back, each entry standing for ``group``
+    consecutive tiles of ``tiles`` [n_entries * group, 16, CK]; a block
+    stops at the first entry whose entry bits reach its worst best-t."""
     Rpad = rays.shape[0]
-    nb = Rpad // RAY_BLOCK
-    nc = tri_pack.shape[0]
-    ck = tri_pack.shape[2]
+    nb = Rpad // ray_block
+    ck = tiles.shape[2]
+    n_entries = tiles.shape[0] // group
     out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
     out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
     big_id = torch.tensor(2 ** 30, dtype=torch.int32, device=rays.device)
     lane = torch.arange(ck, dtype=torch.int32, device=rays.device)
-    for b0, b1 in _block_chunks(nb, tri_pack):
-        rb = rays[b0 * RAY_BLOCK:b1 * RAY_BLOCK]
+    for b0, b1 in _block_chunks(nb, tiles, ray_block):
+        rb = rays[b0 * ray_block:b1 * ray_block]
         tc = _sphere_tc(rb, sph_pack)
         sph_t = tc.amin(dim=1)
         srow = torch.arange(tc.shape[1], dtype=torch.int32,
                             device=rays.device)
         sph_i = torch.where(tc <= sph_t[:, None], n_tris + srow,
                             big_id).amin(dim=1)
-        bt = sph_t.reshape(b1 - b0, RAY_BLOCK)
-        bi = torch.where(sph_t < _BIG, sph_i, -1).reshape(b1 - b0, RAY_BLOCK)
-        if n_tris > 0 and nc > 0:
-            rays_b = rb.reshape(b1 - b0, RAY_BLOCK, -1)
+        bt = sph_t.reshape(b1 - b0, ray_block)
+        bi = torch.where(sph_t < _BIG, sph_i, -1).reshape(b1 - b0, ray_block)
+        if n_tris > 0 and n_entries > 0:
+            rays_b = rb.reshape(b1 - b0, ray_block, -1)
             lst = lists[b0:b1]
             count = lst[:, 0]
             active = torch.ones(b1 - b0, dtype=torch.bool, device=rays.device)
-            for k in range(nc):
-                active &= (k < count) & (lst[:, 1 + nc + k] < _worst_bits(bt))
+            for k in range(n_entries):
+                active &= (k < count) \
+                    & (lst[:, 1 + n_entries + k] < _worst_bits(bt))
                 blk = active.nonzero().squeeze(1)
                 if blk.numel() == 0:
                     break
-                c = lst[blk, 1 + k].long()
-                t, valid = _tile_t(tri_pack[c], rays_b[blk])
-                tcl = torch.where(valid, t, _BIG)
-                tile_t = tcl.amin(dim=2)
-                win = torch.where(tcl <= tile_t[..., None],
-                                  (c[:, None] * ck).to(torch.int32)[..., None]
-                                  + lane, big_id).amin(dim=2)
-                better = tile_t < bt[blk]
-                bt[blk] = torch.where(better, tile_t, bt[blk])
-                bi[blk] = torch.where(better, win, bi[blk])
-        out_t[b0 * RAY_BLOCK:b1 * RAY_BLOCK] = bt.reshape(-1)
-        out_i[b0 * RAY_BLOCK:b1 * RAY_BLOCK] = torch.where(
+                for g in range(group):
+                    c = lst[blk, 1 + k].long() * group + g
+                    t, valid = _tile_t(tiles[c], rays_b[blk])
+                    tcl = torch.where(valid, t, _BIG)
+                    tile_t = tcl.amin(dim=2)
+                    win = torch.where(
+                        tcl <= tile_t[..., None],
+                        (c[:, None] * ck).to(torch.int32)[..., None] + lane,
+                        big_id).amin(dim=2)
+                    better = tile_t < bt[blk]
+                    bt[blk] = torch.where(better, tile_t, bt[blk])
+                    bi[blk] = torch.where(better, win, bi[blk])
+        out_t[b0 * ray_block:b1 * ray_block] = bt.reshape(-1)
+        out_i[b0 * ray_block:b1 * ray_block] = torch.where(
             bt < _BIG, bi, -1).reshape(-1)
     return out_t, out_i
+
+
+# ---------------------------------------------------------------------------
+# closest hit, streamed superclusters (big scenes)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def find_hit_streamed(scene, org, dir, time, t_min=None):
+    """Closest hit for scenes past the resident limit (pallas_find.py:
+    980-1109). Returns (prim [R] int32, t [R]); stop-gradient.
+
+    The triangle pack is grouped into supercluster slabs
+    ``[NS, sc * 16, CK]`` of ``sc`` consecutive spatial clusters; the
+    interval cull (``cluster_lists_block``) over supercluster boxes gives
+    each block of ``STREAM_RAY_BLOCK`` rays its worklist, bounded by the
+    rays' closest sphere hits, and the kernel walks only the survivors.
+    """
+    R = org.shape[0]
+    t, prim = find_streamed(*streamed_inputs(scene, org, dir, time, t_min))
+    t, prim = t[:R], prim[:R]
+    return prim, torch.where(prim >= 0, t, float("inf"))
+
+
+@torch.no_grad()
+def streamed_inputs(scene, org, dir, time, t_min=None):
+    """The arguments of ``find_streamed`` for a wavefront: (lists, rays,
+    slabs, sph_pack, n_tris, sc).
+
+    The TPU grows its ray block when the worklists would overflow its
+    scalar memory (pallas_find.py:1013-1014); the card reads them from
+    device memory, so the block stays at 512 (it would grow only past
+    ~895k rays per call at NS = 74, and a render chunk holds 524,288).
+    """
+    t_min = _per_ray_t_min(t_min, org)
+    rays, _ = _ray_table(
+        [org[:, 0], org[:, 1], org[:, 2], dir[:, 0], dir[:, 1], dir[:, 2],
+         time, t_min], {7: _BIG}, STREAM_RAY_BLOCK)
+
+    tri_pack, nc = _pack_triangles(scene)               # [NC, 16, CK]
+    sc = SUPER_CLUSTERS
+    while -(-nc // sc) > MAX_SUPERS:
+        sc *= 2
+    ns = -(-nc // sc)
+    pad_c = ns * sc - nc
+    slabs = torch.nn.functional.pad(tri_pack, (0, 0, 0, 0, 0, pad_c)) \
+        .reshape(ns, sc * 16, CLUSTER_SIZE)
+
+    # supercluster boxes: min/max over consecutive cluster groups, padded
+    # clusters empty (+-3e38)
+    if scene.cluster_min.shape[0] == nc:
+        cmin, cmax = scene.cluster_min, scene.cluster_max
+    else:  # a scene without cluster metadata: derive it here
+        cmin, cmax = cluster_bounds_device(scene.tri_v0, scene.tri_v1,
+                                           scene.tri_v2)
+    cmin = torch.nn.functional.pad(cmin, (0, 0, 0, pad_c), value=_BIG)
+    cmax = torch.nn.functional.pad(cmax, (0, 0, 0, pad_c), value=-_BIG)
+    smin = cmin.reshape(ns, sc, 3).amin(dim=1)
+    smax = cmax.reshape(ns, sc, 3).amax(dim=1)
+
+    sph_bound = None
+    if scene.sph_c0.shape[0] > 0:
+        sph_bound, _ = _sph_candidates(scene, org, dir, time, t_min)
+    lists = cluster_lists_block(org, dir, t_min, smin, smax, t_max=sph_bound,
+                                ray_block=STREAM_RAY_BLOCK)
+    return lists, rays, slabs, _pack_spheres(scene), scene.tri_v0.shape[0], \
+        sc
+
+
+def find_streamed(lists, rays, slabs, sph_pack, n_tris, sc):
+    """Closest hit per ray over supercluster worklists -> (t [Rpad] f32,
+    prim [Rpad] int32; -1 = miss).
+
+    Launches the CUDA kernel on CUDA tensors (csrc/find.cu), runs
+    ``find_streamed_plain`` on CPU tensors.
+
+    Kernel note. Replaces ``_find_streamed_kernel`` (pallas_find.py:893),
+    which double-buffers 128 KB supercluster slabs from HBM into VMEM by
+    DMA. One CUDA block of 512 threads per worklist row, one thread per
+    ray. For each active supercluster, in list order, the block walks its
+    ``sc`` [16, CK] tiles (16 KB each) through two shared-memory buffers:
+    ``cp.async`` copies tile j+1 while every thread tests its ray against
+    tile j, the Hopper counterpart of the TPU's two-slot DMA. Spheres come
+    first; a triangle replaces the best only if strictly nearer, the lowest
+    lane within a tile, the earlier tile across tiles, as the TPU kernel
+    combines them. Unlike the TPU kernel, a block stops at the first
+    supercluster whose block-min entry distance reaches its worst best-t
+    (``__syncthreads_or``, as ``find_closest``); the plain version does the
+    same, and no hit is lost: nothing in that box is nearer. Bound: the
+    FP32 pipes and the divide, as ``find_closest``; the slabs are read
+    once per active (block, supercluster), from L2 mostly.
+    """
+    if not rays.is_cuda:
+        return find_streamed_plain(lists, rays, slabs, sph_pack, n_tris, sc)
+    nb = _check_streamed_args(lists, rays, slabs, sph_pack, sc)
+    Rpad = rays.shape[0]
+    out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
+    out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
+    FIND_STREAMED.launch(
+        rays.device,
+        _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays),
+        _cuda.ptr(slabs), slabs.shape[0], sc, slabs.shape[2],
+        _cuda.ptr(sph_pack), sph_pack.shape[0], n_tris, STREAM_RAY_BLOCK,
+        nb, _cuda.ptr(out_t), _cuda.ptr(out_i),
+    )
+    return out_t, out_i
+
+
+def find_streamed_plain(lists, rays, slabs, sph_pack, n_tris, sc):
+    """Plain PyTorch version of ``find_streamed``: the walk of
+    ``find_closest_plain`` with blocks of STREAM_RAY_BLOCK rays and ``sc``
+    tiles per worklist entry."""
+    ns, _, ck = slabs.shape
+    tiles = slabs.reshape(ns * sc, 16, ck)
+    return _closest_walk(lists, rays, tiles, sph_pack, n_tris,
+                         STREAM_RAY_BLOCK, sc)
+
+
+def _check_streamed_args(lists, rays, slabs, sph_pack, sc):
+    """Validate what the streamed kernel reads; returns the block count."""
+    dev = rays.device
+    for name, x, dtype in (("lists", lists, torch.int32),
+                           ("rays", rays, torch.float32),
+                           ("slabs", slabs, torch.float32),
+                           ("sph_pack", sph_pack, torch.float32)):
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(
+                f"{name}: need a contiguous {dtype} tensor on {dev}, got "
+                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
+            )
+    Rpad = rays.shape[0]
+    if rays.ndim != 2 or rays.shape[1] != 8 or Rpad % STREAM_RAY_BLOCK:
+        raise ValueError(f"rays must be [nb * {STREAM_RAY_BLOCK}, 8], got "
+                         f"{tuple(rays.shape)}")
+    nb = Rpad // STREAM_RAY_BLOCK
+    if slabs.ndim != 3 or slabs.shape[1] != 16 * sc or slabs.shape[2] > 512 \
+            or slabs.shape[2] % 4:
+        raise ValueError(f"slabs must be [NS, 16 * {sc}, CK <= 512, a "
+                         f"multiple of 4], got {tuple(slabs.shape)}")
+    ns = slabs.shape[0]
+    if lists.shape != (nb, 1 + 2 * ns):
+        raise ValueError(f"lists {tuple(lists.shape)} do not fit {nb} "
+                         f"blocks of {ns} superclusters")
+    if sph_pack.ndim != 2 or sph_pack.shape[1] != 8:
+        raise ValueError(f"sph_pack must be [Spad, 8], got "
+                         f"{tuple(sph_pack.shape)}")
+    return nb
 
 
 # ---------------------------------------------------------------------------

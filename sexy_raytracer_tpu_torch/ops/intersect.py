@@ -3,7 +3,8 @@
 
 ``find_hit`` is a non-differentiable index search returning the winning
 global primitive id (triangles first, then spheres; -1 = miss) and its t.
-Its production path is the cluster-culled CUDA kernel of ``ops/find.py``;
+Its production paths are the cluster-culled CUDA kernels of
+``ops/find.py`` (resident, and streamed for big scenes);
 ``find_hit_bruteforce`` is the plain referee with the evaluation order of
 the JAX package's tiled scan.
 
@@ -23,11 +24,9 @@ from sexy_raytracer_tpu_torch.utils.mathx import EPSILON
 
 T_MIN_DEFAULT = 0.001  # reference main.cpp:39
 
-_LATER = {
-    "bvh": "the BVH referee (ROADMAP.md queue 1, big scenes)",
-    "streamed": "the streamed big-scene kernel (ROADMAP.md queue 2, kernel 8)",
-    "pallas_mxu": "the MXU comparison kernel (ROADMAP.md queue 2, kernel 9)",
-}
+# Past this many triangles ``method="auto"`` takes the streamed
+# supercluster find, as the JAX package does (intersect.py:47-50).
+PALLAS_RESIDENT_MAX_TRIS = 120_000
 
 
 def _per_ray_t_min(t_min, org):
@@ -158,24 +157,40 @@ def find_hit_bruteforce(scene, org, dir, time, t_min=None, tri_tile=512):
 @torch.no_grad()
 def find_hit(scene, org, dir, time, t_min=None, method="auto"):
     """Dispatch hit finding -> ``(prim [R] int32, t [R] float32)``;
-    stop-gradient, whatever the method.
+    stop-gradient, whatever the method. Each kernel-backed method runs its
+    CUDA kernel on CUDA tensors and its plain version on CPU tensors.
 
     ``method``:
-      * ``auto`` / ``pallas`` — the cluster-culled find (ops/find.py): the
-        CUDA kernel on CUDA tensors, its plain version on CPU tensors;
+      * ``auto`` — ``pallas`` up to ``PALLAS_RESIDENT_MAX_TRIS`` triangles,
+        ``streamed`` past it (on both devices: the JAX package sends CPU
+        big scenes to ``bvh`` instead, which finds the same closest hit);
+      * ``pallas`` — the cluster-culled find (ops/find.py);
       * ``pallas_nocull`` — the same with culling disabled (test aid);
-      * ``bruteforce`` — the tiled plain scan.
+      * ``streamed`` — the supercluster find for big scenes (ops/find.py);
+      * ``pallas_mxu`` — the brute-force weight-stack kernel (ops/brute.py);
+      * ``bruteforce`` — the tiled plain scan;
+      * ``bvh`` — the skip-link BVH traversal, the correctness referee
+        (ops/bvh_traverse.py; needs a scene built with its BVH).
     """
+    if method == "auto" and scene.tri_v0.shape[0] > PALLAS_RESIDENT_MAX_TRIS:
+        method = "streamed"
+    if method == "streamed":
+        from sexy_raytracer_tpu_torch.ops.find import find_hit_streamed
+
+        return find_hit_streamed(scene, org, dir, time, t_min)
     if method in ("auto", "pallas", "pallas_nocull"):
         from sexy_raytracer_tpu_torch.ops.find import find_hit_clustered
 
         return find_hit_clustered(scene, org, dir, time, t_min,
                                   cull=(method != "pallas_nocull"))
+    if method == "pallas_mxu":
+        from sexy_raytracer_tpu_torch.ops.brute import find_hit_brute
+
+        return find_hit_brute(scene, org, dir, time, t_min)
+    if method == "bvh":
+        from sexy_raytracer_tpu_torch.ops.bvh_traverse import find_hit_bvh
+
+        return find_hit_bvh(scene, org, dir, time, t_min)
     if method == "bruteforce":
         return find_hit_bruteforce(scene, org, dir, time, t_min)
-    if method in _LATER:
-        raise NotImplementedError(
-            f"find_hit(method={method!r}) needs {_LATER[method]}, which is "
-            "not ported yet"
-        )
     raise ValueError(f"unknown find_hit method {method!r}")

@@ -30,9 +30,11 @@ from sexy_raytracer_tpu_torch import checks  # noqa: E402
 from sexy_raytracer_tpu_torch.models import presets  # noqa: E402
 from sexy_raytracer_tpu_torch.models.scene import MAT_LIGHT  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import _cuda  # noqa: E402
+from sexy_raytracer_tpu_torch.ops import brute as tbrute  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import find as tfind  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import fused as tfused  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import histogram as thist  # noqa: E402
+from sexy_raytracer_tpu_torch.ops import intersect as tint  # noqa: E402
 from sexy_raytracer_tpu_torch.ops.intersect import emissive_sphere_hit  # noqa: E402
 from sexy_raytracer_tpu_torch.render.camera import Camera  # noqa: E402
 from sexy_raytracer_tpu_torch.render.integrator import (  # noqa: E402
@@ -269,3 +271,47 @@ def test_train_gradients_on_card_match_cpu(scene, dev, small_cfg):
         assert float((g_k[k] - g_p[k]).abs().max()) <= 1e-2 * max(scale,
                                                                   1e-12), k
 
+
+
+@pytest.fixture(scope="module")
+def big_scene(dev, tmp_path_factory):
+    """The stand-in at n = 128: 32,768 triangles, 128 clusters, 8
+    superclusters, with its BVH."""
+    s, _ = presets.flagship_standin(
+        n=128, data_dir=str(tmp_path_factory.mktemp("no-assets")), device=dev,
+        build_bvh=True)
+    return s
+
+
+def test_find_streamed_kernel_matches_plain(big_scene, dev):
+    """Kernel 8 against its plain version on the same supercluster lists:
+    the same prim ids and t bits; and the referees agree."""
+    org, d, t, t_min = _fuzz(8192, dev, seed=3)
+    inp = tfind.streamed_inputs(big_scene, org, d, t, t_min)
+    before = tfind.FIND_STREAMED.launches
+    t_k, p_k = tfind.find_streamed(*inp)
+    torch.cuda.synchronize()
+    assert tfind.FIND_STREAMED.launches == before + 1
+    t_p, p_p = tfind.find_streamed_plain(*inp)
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert ((p_k >= 0) & (p_k < big_scene.num_triangles)).sum() > 100
+    p_s, _ = tint.find_hit(big_scene, org, d, t, t_min=t_min,
+                           method="streamed")
+    p_v, _ = tint.find_hit(big_scene, org, d, t, t_min=t_min, method="bvh")
+    assert (p_s != p_v).float().mean() < 1e-3
+
+
+def test_tri_brute_kernel_matches_plain(scene, dev):
+    """Kernel 9 against its plain version: the same ids and t bits."""
+    org, d, _, _ = _fuzz(8192, dev, seed=5)
+    org4, dir4 = tbrute.ray4(org, d)
+    w = tbrute.build_weights(scene)
+    before = tbrute.TRI_BRUTE.launches
+    t_k, i_k = tbrute.tri_brute(org4, dir4, w, 0.001)
+    torch.cuda.synchronize()
+    assert tbrute.TRI_BRUTE.launches == before + 1
+    t_p, i_p = tbrute.tri_brute_plain(org4, dir4, w, 0.001)
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert (i_k >= 0).sum() > 100

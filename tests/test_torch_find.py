@@ -182,12 +182,28 @@ def test_occluded_matches_pallas(scenes, wave):
     assert (occ_t == want).mean() > 0.99
 
 
-def test_deferred_methods_raise(scenes):
-    _, tscene = scenes
-    o = torch.zeros((4, 3))
-    for method in ("bvh", "streamed", "pallas_mxu"):
-        with pytest.raises(NotImplementedError):
-            tint.find_hit(tscene, o, o, o[:, 0], method=method)
-    big = torch.zeros((tfind.PER_RAY_CULL_MAX_CLUSTERS + 1, 3))
-    with pytest.raises(NotImplementedError):
-        tfind.cluster_lists(o, o, o[:, 0], big, big)
+@pytest.mark.parametrize("method", ["streamed", "pallas_mxu", "bvh"])
+def test_every_method_matches_bruteforce(scenes, method):
+    """Every method of the JAX dispatch (intersect.py:254-298) is ported:
+    on CPU tensors each runs its plain version and finds the referee's
+    closest hit. ``bvh`` needs the scene's tree."""
+    jscene, tscene = scenes
+    if method == "bvh":
+        tscene = scene_from_numpy(
+            jax.device_get(jscene)._replace(**_jax_tree(jscene)), "cpu")
+    (jo, jd, jt, jtm), (to, td, tt, ttm) = _both(_fuzz(2048, 4))
+    p, t = tint.find_hit(tscene, to, td, tt, t_min=ttm, method=method)
+    p_b, t_b = map(np.asarray, jint.find_hit_bruteforce(jscene, jo, jd, jt,
+                                                        t_min=jtm))
+    _near_tie_ok(p.numpy(), t.numpy(), p_b, t_b)
+    with pytest.raises(ValueError):
+        tint.find_hit(tscene, to, td, tt, method="no-such-method")
+
+
+def _jax_tree(jscene):
+    """The JAX package's BVH of a scene, as its ``bvh_*`` fields."""
+    from sexy_raytracer_tpu.models.bvh import build_bvh
+
+    bvh = build_bvh(jax.device_get(jscene))
+    return dict(bvh_min=bvh.node_min, bvh_max=bvh.node_max,
+                bvh_left=bvh.left, bvh_right=bvh.right, bvh_skip=bvh.skip)

@@ -6,6 +6,8 @@ depth of the file (a scan of every import statement)."""
 import ast
 import pathlib
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "sexy_raytracer_tpu"}
 
@@ -25,3 +27,19 @@ def test_port_imports_no_jax():
     bad = [(f.relative_to(REPO).as_posix(), m) for f in files
            for m in _imported_modules(f) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", ["ops/brute.py", "ops/bvh_traverse.py",
+                                    "models/bvh.py", "native/bvh_native.py",
+                                    "native/__init__.py"])
+def test_big_scene_modules_import_no_jax(module):
+    """The big-scene modules are in the scan and import none of it; the
+    native builder's source is the JAX package's, byte for byte."""
+    path = REPO / "sexy_raytracer_tpu_torch" / module
+    assert path.exists()
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    if module.startswith("native/"):
+        cpp = "native/bvh_builder.cpp"
+        assert (REPO / "sexy_raytracer_tpu_torch" / cpp).read_bytes() \
+            == (REPO / "sexy_raytracer_tpu" / cpp).read_bytes()

@@ -45,13 +45,12 @@ def _standin_builder(B, data_dir, n=15):
     return b
 
 
-def _assert_same_scene(tscene, jscene, skip_bvh=False):
+def _assert_same_scene(tscene, jscene):
+    """Every field, the BVH's included, bit for bit."""
     assert isinstance(tscene, SceneData)
     jfields = jscene._asdict()
     assert list(jfields) == list(SceneData._fields)
     for name in SceneData._fields:
-        if skip_bvh and name.startswith("bvh_"):
-            continue
         want = np.asarray(jfields[name])
         got = getattr(tscene, name)
         assert got.device.type == "cpu"
@@ -90,7 +89,8 @@ def test_standin_faces_the_flagship_eye():
 def test_shirley_spheres_matches():
     jscene, jcfg = jpresets.shirley_spheres()
     tscene, tcfg = tpresets.shirley_spheres(device="cpu")
-    _assert_same_scene(tscene, jscene, skip_bvh=True)
+    _assert_same_scene(tscene, jscene)
+    assert tscene.num_bvh_nodes == 2 * tscene.num_spheres - 1
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
 
 
@@ -98,7 +98,8 @@ def test_rustediron_sentinels_match(tmp_path):
     jscene, jcfg = jpresets.rustediron_globe(data_dir=str(tmp_path))
     tscene, tcfg = tpresets.rustediron_globe(data_dir=str(tmp_path),
                                              device="cpu")
-    _assert_same_scene(tscene, jscene, skip_bvh=True)
+    _assert_same_scene(tscene, jscene)
+    assert tscene.num_bvh_nodes == 2 * 4 - 1
     # every iron map is the magenta missing-file sentinel (presets.py:37-39)
     magenta = (tscene.tex_color0 == torch.tensor([1.0, 0.0, 1.0])).all(dim=1)
     assert int(magenta.sum()) == 4
@@ -121,6 +122,25 @@ def test_scene_from_numpy_round_trip(tmp_path):
         scene_from_numpy({"tri_v0": np.zeros((0, 3), np.float32)}, "cpu")
 
 
-def test_bvh_build_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        _wavefront_scene(TBuilder).build()
+def test_default_build_carries_the_jax_bvh(tmp_path):
+    """``build()`` with its defaults builds the BVH as JAX's does
+    (scene.py:729-730): the wavefront scene (numpy builder) and the
+    stand-in at n = 16 (516 primitives: the native builder)."""
+    from sexy_raytracer_tpu_torch.models import bvh as tbvh
+
+    _assert_same_scene(_wavefront_scene(TBuilder).build(device="cpu"),
+                       _wavefront_scene(JBuilder).build(device=False))
+    jscene = _standin_builder(JBuilder, str(tmp_path), n=16).build(
+        device=False)
+    tscene = _standin_builder(TBuilder, str(tmp_path), n=16).build(
+        device="cpu")
+    assert tbvh.builder_for(tscene.num_triangles + tscene.num_spheres) \
+        == "native"
+    _assert_same_scene(tscene, jscene)
+    # the stand-in preset keeps its own default: no tree unless asked
+    bare, _ = tpresets.flagship_standin(n=8, height=8, data_dir=str(tmp_path),
+                                        device="cpu")
+    tree, _ = tpresets.flagship_standin(n=8, height=8, data_dir=str(tmp_path),
+                                        device="cpu", build_bvh=True)
+    assert bare.num_bvh_nodes == 0
+    assert tree.num_bvh_nodes == 2 * (128 + 4) - 1

@@ -31,6 +31,7 @@ from sexy_raytracer_tpu.diff.params import (  # noqa: E402
 )
 from sexy_raytracer_tpu.diff.params import merge_params as j_merge  # noqa: E402
 from sexy_raytracer_tpu.models import SceneBuilder as JBuilder  # noqa: E402
+from sexy_raytracer_tpu.models import presets as jpresets  # noqa: E402
 from sexy_raytracer_tpu.parallel.mesh import make_mesh  # noqa: E402
 from sexy_raytracer_tpu.render.camera import Camera as JCamera  # noqa: E402
 from sexy_raytracer_tpu.utils.config import CameraConfig, RenderConfig  # noqa: E402
@@ -125,12 +126,35 @@ def test_merge_params_tri_geometry_matches_jax(tmp_path):
     assert not (got.cluster_min == tscene.cluster_min).all()
 
 
-def test_merge_params_refuses_a_bvh(scenes):
-    _, tscene = scenes
-    with_bvh = tscene._replace(bvh_min=torch.zeros((1, 3)))
-    merge_params(with_bvh, {"mat_metallic": tscene.mat_metallic})
-    with pytest.raises(NotImplementedError):
-        merge_params(with_bvh, {"sph_c0": tscene.sph_c0})
+def test_merge_params_refits_the_bvh_like_jax(tmp_path):
+    """A JAX scene from ``build()`` with its defaults (BVH included),
+    carried across, with ``sph_c0`` and ``tri_v0`` moved: the refit node
+    bounds equal JAX's bit for bit. ``DEFAULT_TRAINABLE`` trains
+    ``sph_c0``, so every train step on such a scene refits."""
+    b = JBuilder()
+    tpresets.add_relief_mesh(b, 8)
+    jpresets._add_ground_and_lights(b)
+    jpresets._add_iron_and_metal(b, str(tmp_path))
+    jscene = jax.device_get(b.build())
+    assert jscene.bvh_min.shape[0] == 2 * (128 + 4) - 1
+    tscene = scene_from_numpy(jscene, "cpu")
+    r = np.random.default_rng(3)
+    moved = {k: (np.asarray(getattr(jscene, k))
+                 + r.normal(0, 0.05, getattr(jscene, k).shape)
+                 ).astype(np.float32) for k in ("sph_c0", "tri_v0")}
+    want = j_merge(jax.device_put(jscene),
+                   {k: jnp.asarray(v) for k, v in moved.items()})
+    got = merge_params(tscene, {k: torch.from_numpy(v)
+                                for k, v in moved.items()})
+    for k in ("bvh_min", "bvh_max"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(getattr(want, k)),
+                                      err_msg=k)
+        assert not np.array_equal(getattr(got, k).numpy(),
+                                  getattr(jscene, k))
+    # a parameter that is no geometry leaves the tree as it was
+    same = merge_params(tscene, {"mat_metallic": tscene.mat_metallic})
+    assert same.bvh_min is tscene.bvh_min
 
 
 def test_make_optimizer_matches_optax():
