@@ -65,6 +65,27 @@ nonzero without a result line:
      no other kernel; finite, repeatable, at least 5% of primary rays on
      a triangle; its time and Mrays/s.
 
+8. the tools and the reference integrator:
+   * the sorted histogram's placement (kernel 10) bit for bit against its
+     plain version and across two launches, at the four A/B shapes of
+     ``tools.profile histogram``, on all-unique ids and on a fuzz with
+     negative and out-of-range ids (C 1 and 3); the whole
+     ``dense_histogram_sorted`` within 2 n u max|S| of ``index_add_``, of
+     its plain version and of a second call (its float32 cumsum is not
+     bitwise repeatable on the card);
+     median times of kernel, wrapper, plain versions, ``index_copy_`` and
+     ``index_add_``, and the byte bound;
+   * ``tools.profile.cmd_histogram`` counted: kernel 10 once per sorted
+     call, kernel 7 once per direct call, nothing else;
+   * ``trace_rays(fused=False)`` on the train step's 131,072 paths: kernel
+     1 once per bounce and nothing else, finite, within the 0.5% mismatch
+     budget of the fused integrator; both timed; one backward of the train
+     loss on 4,096 pixels through it: kernel 7 once per bounce (the
+     atlas), gradients within relative 5e-4 of the fused path's;
+   * ``tools.profile`` step and xplane on the stand-in, and
+     ``_bigscene_one`` at 3,042 and 304,000 triangles in subprocesses;
+     whether the profiler names the ctypes kernels; the phase's seconds.
+
 The last three lines are the kernels' JSON record, nvidia-smi's
 "name, power.limit" line, and ``{"ok": true, "device": {...}}``.
 """
@@ -1056,6 +1077,272 @@ def main(argv=None) -> int:
         f"{100 * big_share:.2f}%; {smi}")
     write_png(os.path.splitext(args.out)[0] + "_big.png", img_big)
 
+    # ---- 8. the tools and the reference integrator ---------------------
+    from sexy_raytracer_tpu_torch.tools import devtime
+    from sexy_raytracer_tpu_torch.tools import profile as tprofile
+
+    t8 = time.perf_counter()
+
+    def prefix_atol(idx, vals, n_bins):
+        """Per channel, 2 n u max_k |S_k| (u = 2^-24): a bin of the sorted
+        histogram is a difference of two float32 prefix sums S of the
+        id-sorted values, so its error scales with the largest of them."""
+        if idx.numel() == 0:
+            return torch.zeros(vals.shape[1], device=vals.device)
+        keep = (idx >= 0) & (idx < n_bins)
+        order = torch.sort(torch.where(keep, idx.long(), n_bins),
+                           stable=True)[1]
+        S = vals[order].double().cumsum(0)
+        return (2.0 * idx.numel() * 2.0 ** -24 * S.abs().amax(0)).float()
+
+    def library_sorted(idx, vals, n_bins):
+        """The one PyTorch call for the whole function: index_add_ of the
+        in-range entries."""
+        keep = (idx >= 0) & (idx < n_bins)
+        i, v = idx[keep].long(), vals[keep]
+        return lambda: torch.zeros((n_bins, v.shape[1]), device=v.device) \
+            .index_add_(0, i, v)
+
+    def library_place(tex_u, seg, win_starts, n_bins):
+        """The one PyTorch call for the placement: index_copy_ into
+        zeros."""
+        i = tex_u.long()
+        return lambda: torch.zeros((n_bins, seg.shape[1]), device=seg.device) \
+            .index_copy_(0, i, seg)
+
+    def check_place(inp):
+        got = histogram.place(*inp)
+        again = histogram.place(*inp)
+        want = histogram.place_plain(*inp)
+        bits = got.view(torch.int32)
+        if not torch.equal(bits, want.view(torch.int32)):
+            raise AssertionError("place: kernel and plain version differ")
+        if not torch.equal(bits, again.view(torch.int32)):
+            raise AssertionError("place: two launches differ")
+        return 0.0, 0, f"bit-equal to the plain version and across two " \
+                       f"launches; {inp[0].numel()} unique ids in " \
+                       f"{inp[2].numel() - 1} windows"
+
+    def check_sorted(inp):
+        # the glue's float32 cumsum is CUB's decoupled look-back scan on
+        # the card, whose association varies from run to run: the whole
+        # wrapper is held to the prefix-sum bound, kernel 10 alone (on
+        # fixed glue outputs, check_place) bit for bit
+        got = histogram.dense_histogram_sorted(*inp)
+        again = histogram.dense_histogram_sorted(*inp)
+        want = histogram.dense_histogram_sorted_plain(*inp)
+        lib = library_sorted(*inp)()
+        atol = prefix_atol(*inp)
+        err = (got - lib).abs()
+        for name, other in (("index_add_", lib), ("its plain version", want),
+                            ("a second call", again)):
+            if not bool(((got - other).abs() <= atol).all()):
+                raise AssertionError(f"dense_histogram_sorted: differs from "
+                                     f"{name} beyond the prefix-sum bound")
+        n_rerun = int((got.view(torch.int32) != again.view(torch.int32))
+                      .sum())
+        return float(err.max()) if err.numel() else 0.0, n_rerun, \
+            f"within 2 n u max|S| (up to {float(atol.max()):.3g}) of " \
+            f"index_add_ (max abs diff {float(err.max()):.3g}), of its " \
+            f"plain version (max {float((got - want).abs().max()):.3g}) " \
+            f"and of a second call ({n_rerun} values not bit-equal, max " \
+            f"{float((got - again).abs().max()):.3g})"
+
+    def place_bound(inp):
+        tex_u, seg, win_starts, n_bins = inp
+        return bytes_of(tex_u, seg) + n_bins * seg.shape[1] * 4, 0, \
+            "read tex_u and seg once, write the table once"
+
+    def sorted_bound(inp):
+        idx, vals, n_bins = inp
+        return bytes_of(idx, vals) + n_bins * vals.shape[1] * 4, \
+            vals.numel(), "one add per entry and channel"
+
+    # 8.1 kernel 10 at the tools' A/B shapes, and the whole wrapper
+    ab, main_glue = [], None
+    for case, idx, vals, n_bins in tprofile.histogram_inputs(
+            tprofile.HISTOGRAM_CASES, dev):
+        glue = (*histogram.sorted_segments(idx, vals, n_bins), n_bins)
+        k10 = record("place", histogram.PLACE, glue, check_place,
+                     histogram.place, histogram.place_plain, place_bound,
+                     case, library=library_place(*glue))
+        k10w = record("dense_histogram_sorted", histogram.PLACE,
+                      (idx, vals, n_bins), check_sorted,
+                      histogram.dense_histogram_sorted,
+                      histogram.dense_histogram_sorted_plain, sorted_bound,
+                      case, library=library_sorted(idx, vals, n_bins))
+        ab.append((k10, k10w))
+        if not main_glue:
+            main_glue = (glue, (idx, vals, n_bins))
+
+    # the same calls' device time alone, from the profiler's device events
+    # (CUDA events around one call also count the host's launch gaps)
+    def device_ms(fn, n=10):
+        _, ev = devtime.profile_events(fn, [()], n)
+        by = {}
+        for _, name, us in ev:
+            by[name] = by.get(name, 0.0) + us / 1e3 / n
+        return sum(by.values()), by
+
+    glue, whole = main_glue
+    dev10 = {
+        "place": device_ms(lambda: histogram.place(*glue)),
+        "index_copy_": device_ms(library_place(*glue)),
+        "dense_histogram_sorted": device_ms(
+            lambda: histogram.dense_histogram_sorted(*whole)),
+        "index_add_": device_ms(library_sorted(*whole)),
+    }
+    log(f"device time per call by the profiler ({ab[0][0]['case']}, {smi}): "
+        + "; ".join(f"{k} {v[0]:.4f} ms in {len(v[1])} kernels"
+                    for k, v in dev10.items())
+        + "; place_kernel alone " + ", ".join(
+            f"{v:.4f} ms" for name, v in dev10["place"][1].items()
+            if "place_kernel" in name))
+    keys10 = ("case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "max_abs_err")
+    records["place"] = ab[0][0]
+    records["place"]["ab"] = [{k: r[k] for k in keys10} for r, _ in ab]
+    records["place"]["wrapper"] = [{k: r[k] for k in keys10} for _, r in ab]
+    records["place"]["device_ms"] = {k: v[0] for k, v in dev10.items()}
+    del main_glue, glue, whole
+    fz8 = np.random.default_rng(8)
+    extra = [("all-unique",
+              torch.arange(2048, dtype=torch.int32, device=dev) * 2,
+              torch.ones((2048, 4), device=dev), 4096)]
+    for C in (1, 3):
+        extra.append((f"fuzz C={C}", torch.tensor(
+            fz8.integers(-500, 70001 + 500, 50000), dtype=torch.int32,
+            device=dev), torch.tensor(fz8.normal(size=(50000, C)),
+                                      dtype=torch.float32, device=dev), 70001))
+    for case, idx, vals, n_bins in extra:
+        check_only("place", (*histogram.sorted_segments(idx, vals, n_bins),
+                             n_bins), check_place, case)
+        check_only("dense_histogram_sorted", (idx, vals, n_bins),
+                   check_sorted, case)
+    if not torch.equal(histogram.dense_histogram_sorted(*extra[0][1:]),
+                       library_sorted(*extra[0][1:])()):  # integer sums
+        raise AssertionError("dense_histogram_sorted: unit counts of the "
+                             "all-unique case are not exact")
+    del ab, extra
+
+    # 8.2 the tools' direct-vs-sorted A/B through its function, counted
+    hist_reps = 10
+    reset_counts()
+    hist_rows = tprofile.cmd_histogram(dev, reps=hist_reps)
+    counts = read_counts()
+    calls = len(tprofile.HISTOGRAM_CASES) * (hist_reps + 1)
+    expect = {k: 0 for k in counts}
+    expect.update({"srt_histogram": calls, "srt_place": calls})
+    log(f"profile histogram launches: {counts} (expected {expect})")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    log("profile histogram (host clock, mean of 10 after a warm-up, "
+        f"{smi}): " + json.dumps(hist_rows))
+    records["place"]["launches"] = counts["srt_place"]
+    records["place"]["launches_by_path"] = {
+        "profile_histogram": counts["srt_place"]}
+    records["dense_histogram"]["launches_by_path"]["profile_histogram"] = \
+        counts["srt_histogram"]
+
+    # 8.3 the reference integrator on the train step's 131,072 paths
+    w8 = tprofile.bench_inputs(dev)
+    trace8 = (w8["scene"], w8["org"], w8["dirs"], w8["times"], w8["keys"],
+              background, cfg.max_bounce)
+    reset_counts()
+    rad_ref = integrator.trace_rays(*trace8, fused=False)
+    counts = read_counts()
+    expect = {k: 0 for k in counts}
+    expect["srt_find_closest"] = cfg.max_bounce
+    log(f"reference integrator launches, one call: {counts} (expected "
+        f"{expect})")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    records["find_closest"]["launches_by_path"]["reference"] = \
+        counts["srt_find_closest"]
+    rad_fus = integrator.trace_rays(*trace8)
+    if not bool(torch.isfinite(rad_ref).all()):
+        raise AssertionError("non-finite radiance from the reference "
+                             "integrator")
+    close = torch.isclose(rad_ref, rad_fus, atol=2e-5, rtol=1e-5).all(dim=1)
+    ref_ms = time_ms(torch, lambda: integrator.trace_rays(
+        *trace8, fused=False), 5)
+    fus_ms = time_ms(torch, lambda: integrator.trace_rays(*trace8), 5)
+    vis_ms = time_ms(torch, lambda: integrator.trace_rays(
+        *trace8, last_bounce_vis=True), 5)
+    log(f"reference vs fused integrator, {rad_ref.shape[0]} paths x "
+        f"{cfg.max_bounce} bounces: {int((~close).sum())} rays outside atol "
+        f"2e-5 rtol 1e-5 (budget 0.5%), max abs diff "
+        f"{float((rad_ref - rad_fus).abs().max()):.3g}; reference "
+        f"{ref_ms:.3f} ms, fused {fus_ms:.3f} ms, fused with the last-bounce "
+        f"shortcut {vis_ms:.3f} ms (median of 5, CUDA events, {smi})")
+    if float(close.float().mean()) < 0.995:
+        raise AssertionError("reference and fused integrators disagree on "
+                             "> 0.5% of rays")
+    del rad_ref, rad_fus, close
+
+    def loss_grads(fused):
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in extract_params(scene).items()}
+        loss = _loss_fn(
+            params, scene, camera, gate_ids.to(dev),
+            torch.full((4096, 3), 0.25, device=dev), 0, rng.key(5, dev),
+            background, width=W, height=H, spb=2, spp_total=spp,
+            max_bounce=cfg.max_bounce, method="auto", fused=fused)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        return float(loss.detach()), {
+            k: (torch.zeros_like(p) if g is None else g).double()
+            for (k, p), g in zip(params.items(), grads)}
+
+    reset_counts()
+    loss_r, g_r = loss_grads(False)
+    counts = read_counts()
+    expect = {k: 0 for k in counts}
+    expect.update({"srt_find_closest": cfg.max_bounce,
+                   "srt_histogram": cfg.max_bounce})
+    log(f"reference loss backward launches (4096 pixels, spb 2): {counts} "
+        f"(expected {expect}: the atlas backward once per bounce)")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    records["dense_histogram"]["launches_by_path"]["reference_backward"] = \
+        counts["srt_histogram"]
+    loss_f, g_f = loss_grads(None)
+    rel_g = {k: float((g_r[k] - g_f[k]).abs().max())
+             / max(float(g_f[k].abs().max()), 1e-10) for k in g_f}
+    finite = all(bool(torch.isfinite(g).all()) for g in g_r.values())
+    log(f"reference vs fused gradients (4096 pixels, spb 2): loss "
+        f"{loss_r:.6f} vs {loss_f:.6f}; rel grad "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel_g.items())
+        + f"; finite: {finite}")
+    if not finite or max(rel_g.values()) >= 5e-4 \
+            or abs(loss_r - loss_f) > 1e-3 * abs(loss_f):
+        raise AssertionError("reference and fused gradients differ beyond "
+                             "relative 5e-4")
+
+    # 8.4 the tools' step, xplane and big-scene points
+    step_rows = tprofile.cmd_step(dev)
+    xplane_rows = tprofile.cmd_xplane(dev)
+    # do the profiler's device events name the kernels launched through
+    # ctypes? (the train step launches kernels 1 and 3-7, the sorted
+    # histogram kernel 10)
+    probe = next(tprofile.histogram_inputs(tprofile.HISTOGRAM_CASES[:1],
+                                           dev))[1:]
+    _, ev = devtime.profile_events(
+        lambda: histogram.dense_histogram_sorted(*probe), [()], 1)
+    seen = {e[1] for e in ev} | set(xplane_rows)
+    found = {fn: any(f"::{fn}(" in s for s in seen) for fn in (
+        "find_closest_kernel", "hitrec_kernel", "shade_kernel",
+        "hitrec_bwd_kernel", "shade_bwd_kernel", "histogram_kernel",
+        "place_kernel")}
+    log(f"torch.profiler device events name the kernels: {found}")
+    bigscene_out = os.path.splitext(args.out)[0] + "_bigscene.json"
+    big_rows = tprofile.cmd_bigscene(dev, bigscene_out,
+                                     runs=((3042, None), (304000, None)))
+    if len(big_rows) != 2 or min(r["hits"] for r in big_rows) <= 0:
+        raise AssertionError(f"_bigscene_one failed: {big_rows}")
+    records["place"]["tools"] = dict(step=step_rows, bigscene=big_rows)
+    log(f"phase 8: {time.perf_counter() - t8:.1f} s")
+
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
@@ -1093,6 +1380,10 @@ def main(argv=None) -> int:
         log(f"profiles of one chunk, one train step and one big-frame chunk "
             f"written to {args.profile}")
 
+    if sorted(r["source"] + r["replaces"] for r in records.values()) != \
+            sorted(k.source + k.replaces.split(" ")[0] for k in _cuda.KERNELS):
+        raise AssertionError("the kernels' record does not list every "
+                             "kernel of the library once")
     log(json.dumps({"kernels": list(records.values())}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -34,9 +34,10 @@ def _huber(err, delta):
 def _loss_fn(params, scene, camera, pixel_ids, target_pixels, sample_start,
              base_key, background, *, width, height, spb, spp_total,
              max_bounce, method, loss_type="mse", huber_delta=0.1,
-             last_bounce_vis=False):
+             last_bounce_vis=False, fused=None):
     """Scalar loss of ``spb`` samples per pixel against the target
-    (inverse.py:38-130). ``loss_type``:
+    (inverse.py:38-130), traced by ``render_pixels`` (``fused=False``: the
+    reference integrator). ``loss_type``:
 
     * ``mse`` — gamma-2 resolve clamped to [0, 0.999] (color.h:30-39), MSE;
     * ``huber`` — the same resolve, Huber with ``huber_delta``;
@@ -48,7 +49,8 @@ def _loss_fn(params, scene, camera, pixel_ids, target_pixels, sample_start,
     rad = render_pixels(
         full, camera, pixel_ids, sample_start, base_key, background,
         width=width, height=height, spb=spb, spp_total=spp_total,
-        max_bounce=max_bounce, method=method, last_bounce_vis=last_bounce_vis,
+        max_bounce=max_bounce, method=method, fused=fused,
+        last_bounce_vis=last_bounce_vis,
     )
     if loss_type == "tile_linear":
         G = 128  # sample_tile_ids tile size (16 x 8)

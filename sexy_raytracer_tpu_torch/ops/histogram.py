@@ -14,6 +14,15 @@ so the result is deterministic and the two agree bit for bit. The glue
 shared by both (``_segments``) stable-sorts the kept entries by bin, as
 the JAX prologue orders its chunk worklists; see the kernel's note in the
 source for its design and bound.
+
+``dense_histogram_sorted`` is the sort + cumsum + segment-sum histogram
+(``histogram.py:108,270-346``), which the JAX package keeps for A/B
+comparison: ``sorted_segments`` (torch glue, both devices) and ``place``,
+which launches the placement kernel that replaces ``_place_kernel``
+(``histogram.py:59``) on CUDA tensors and runs ``place_plain`` on CPU
+tensors. Unlike ``dense_histogram`` it keeps all-zero rows, and a bin's
+sum is a difference of two float32 prefix sums, so its rounding error
+scales with the largest prefix sum, not with the bin.
 """
 
 from __future__ import annotations
@@ -26,6 +35,12 @@ HISTOGRAM = _cuda.Kernel(
     "srt_histogram", source="sexy_raytracer_tpu_torch/csrc/histogram.cu",
     replaces="sexy_raytracer_tpu/ops/histogram.py:122 (_direct_kernel)",
 )
+PLACE = _cuda.Kernel(
+    "srt_place", source="sexy_raytracer_tpu_torch/csrc/histogram.cu",
+    replaces="sexy_raytracer_tpu/ops/histogram.py:59 (_place_kernel)",
+)
+
+WIN = 2048  # output bins per placement window (histogram.py:46)
 
 
 def _segments(idx, vals, n_bins):
@@ -75,3 +90,90 @@ def dense_histogram_plain(idx, vals, n_bins: int):
         bins = (counts > k).nonzero().squeeze(1)
         out[bins] = out[bins] + vals[order[starts[bins] + k]]
     return out
+
+
+def sorted_segments(idx, vals, n_bins: int):
+    """The sort-based histogram's glue (``histogram.py:282-313``), in torch
+    on either device -> ``(tex_u [K] int32, seg [K, C] float32,
+    win_starts [NW + 1] int32)``.
+
+    Out-of-range ids go to a sentinel that sorts last and is never placed;
+    the entries are stable-sorted by id and their values summed in a
+    float32 cumsum; ``tex_u`` holds each unique in-range id once, ``seg``
+    its segment sum (the cumsum at the segment's end less the previous
+    segment's), and ``win_starts[w]`` the first entry of ``tex_u`` at or
+    past bin ``w * WIN``, for the ``NW = ceil(n_bins / WIN)`` windows.
+    """
+    idx = idx.to(torch.int64)
+    key = torch.where((idx >= 0) & (idx < n_bins), idx, n_bins)
+    sorted_key, perm = torch.sort(key, stable=True)
+    sorted_vals = vals.to(torch.float32)[perm]
+    # one 1-D scan per channel: torch scans a non-innermost dimension of a
+    # CUDA tensor with one thread per column, serially along the rows
+    S = torch.stack([torch.cumsum(sorted_vals[:, c].contiguous(), dim=0)
+                     for c in range(vals.shape[1])], dim=1) \
+        if vals.shape[1] else sorted_vals
+    end = torch.ones_like(sorted_key, dtype=torch.bool)
+    end[:-1] = sorted_key[1:] != sorted_key[:-1]
+    end &= sorted_key < n_bins
+    tex_u = sorted_key[end]
+    S_u = S[end]
+    seg = S_u - torch.cat([S_u.new_zeros((1, S_u.shape[1])), S_u[:-1]])
+    n_windows = -(-n_bins // WIN)
+    bounds = torch.arange(n_windows + 1, dtype=torch.int64,
+                          device=idx.device) * WIN
+    win_starts = torch.searchsorted(tex_u, bounds)
+    return (tex_u.to(torch.int32), seg.contiguous(),
+            win_starts.to(torch.int32))
+
+
+def place(tex_u, seg, win_starts, n_bins: int):
+    """``out[tex_u[e]] = seg[e]`` into ``[n_bins, C]`` zeros: launches the
+    placement kernel on CUDA tensors, runs ``place_plain`` on CPU ones.
+    ``tex_u`` must be sorted, unique and in range, as ``sorted_segments``
+    gives it."""
+    if not seg.is_cuda:
+        return place_plain(tex_u, seg, win_starts, n_bins)
+    K, C = seg.shape
+    n_windows = -(-n_bins // WIN)
+    if seg.dtype != torch.float32 or tex_u.dtype != torch.int32 \
+            or win_starts.dtype != torch.int32 or tex_u.shape != (K,) \
+            or win_starts.shape != (n_windows + 1,) \
+            or not (tex_u.is_cuda and win_starts.is_cuda):
+        raise ValueError(
+            f"place: need int32 tex_u [K], float32 seg [K, C] and int32 "
+            f"win_starts [{n_windows + 1}] on one CUDA device, got "
+            f"{tuple(tex_u.shape)} {tex_u.dtype} {tex_u.device}, "
+            f"{tuple(seg.shape)} {seg.dtype}, {tuple(win_starts.shape)} "
+            f"{win_starts.dtype} {win_starts.device}")
+    tex_u, seg, win_starts = (t.contiguous() for t in (tex_u, seg, win_starts))
+    out = torch.empty((n_bins, C), dtype=torch.float32, device=seg.device)
+    if n_windows and C:
+        PLACE.launch(seg.device, _cuda.ptr(tex_u), _cuda.ptr(seg),
+                     _cuda.ptr(win_starts), n_bins, C, _cuda.ptr(out))
+    return out
+
+
+def place_plain(tex_u, seg, win_starts, n_bins: int):
+    """Plain version of ``place``: zeros and one ``index_copy_``
+    (``win_starts`` is unused; the kernel's windows need it)."""
+    out = torch.zeros((n_bins, seg.shape[1]), dtype=torch.float32,
+                      device=seg.device)
+    return out.index_copy_(0, tex_u.long(), seg)
+
+
+def dense_histogram_sorted(idx, vals, n_bins: int):
+    """[R] int ids, [R, C] values -> [n_bins, C] float32 sums, by sort and
+    cumsum (``histogram.py:108``): ``sorted_segments`` then ``place``."""
+    if vals.is_cuda and (idx.shape != vals.shape[:1]
+                         or idx.device != vals.device):
+        raise ValueError(f"dense_histogram_sorted: need [R] ids and [R, C] "
+                         f"values on one device, got {tuple(idx.shape)} "
+                         f"{idx.device} and {tuple(vals.shape)} {vals.device}")
+    return place(*sorted_segments(idx, vals, n_bins), n_bins)
+
+
+def dense_histogram_sorted_plain(idx, vals, n_bins: int):
+    """Plain version of ``dense_histogram_sorted``: the same glue, then
+    ``place_plain``."""
+    return place_plain(*sorted_segments(idx, vals, n_bins), n_bins)

@@ -1,5 +1,5 @@
-"""Hit finding: the closest primitive per ray (counterpart of
-``ops/intersect.py:45-298``).
+"""Hit finding and differentiable hit records (counterpart of
+``ops/intersect.py``).
 
 ``find_hit`` is a non-differentiable index search returning the winning
 global primitive id (triangles first, then spheres; -1 = miss) and its t.
@@ -13,14 +13,30 @@ back-face culled with ``n.dir <= -eps``, tested with three edge
 half-spaces at the hit point, and accepted for ``t >= t_min``; spheres
 take the nearest root ``>= t_min`` of the half-b quadratic, with the
 center lerped at the ray's time. The true closest hit is kept.
+
+``hit_data`` recomputes the differentiable hit record of known winners
+(``intersect.py:305-512``) in plain torch, in the JAX order of operations:
+the reference integrator's record, through which its gradients flow.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from sexy_raytracer_tpu_torch.models.scene import MAT_LIGHT
-from sexy_raytracer_tpu_torch.utils.mathx import EPSILON
+from sexy_raytracer_tpu_torch.ops.lookup import table_lookup
+from sexy_raytracer_tpu_torch.utils.mathx import (
+    EPSILON,
+    PI,
+    clip,
+    cross,
+    dot,
+    maximum,
+    safe_sqrt,
+    unit_vector,
+)
 
 T_MIN_DEFAULT = 0.001  # reference main.cpp:39
 
@@ -194,3 +210,178 @@ def find_hit(scene, org, dir, time, t_min=None, method="auto"):
     if method == "bruteforce":
         return find_hit_bruteforce(scene, org, dir, time, t_min)
     raise ValueError(f"unknown find_hit method {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# the differentiable hit record (intersect.py:305-512)
+# ---------------------------------------------------------------------------
+
+class HitRecord(NamedTuple):
+    """SoA hit record (reference hittable.h:9-22, arrays over rays)."""
+
+    p: torch.Tensor           # [R,3] hit point
+    normal: torch.Tensor      # [R,3] shading normal (flipped to face the ray)
+    tangent: torch.Tensor     # [R,3]
+    bitangent: torch.Tensor   # [R,3]
+    uv: torch.Tensor          # [R,2]
+    t: torch.Tensor           # [R]
+    front_face: torch.Tensor  # [R] bool
+    mat_id: torch.Tensor      # [R] int32 (0 where miss; see hit mask)
+    hit: torch.Tensor         # [R] bool
+
+
+def _triangle_record(scene, org, dir, tri_id):
+    """Recompute the triangle hit data for known winners (model.h:156-181).
+
+    One packed-row gather ``[T, 16]``, the material id riding as raw bits
+    (intersect.py:305-326); the gradient reaches the scene's vertex and uv
+    fields through it, and stops at the uv of the hit (intersect.py:354).
+    """
+    f32 = torch.float32
+    i = torch.clamp(tri_id, 0, max(scene.tri_v0.shape[0] - 1, 0))
+    pack = torch.cat(
+        [scene.tri_v0, scene.tri_v1, scene.tri_v2,
+         scene.tri_uv0, scene.tri_uv1, scene.tri_uv2,
+         scene.tri_mat.view(f32)[:, None]], dim=1,
+    )  # [T, 16]
+    g = table_lookup(pack, i)
+    v0, v1, v2 = g[:, 0:3], g[:, 3:6], g[:, 6:9]
+    uv0, uv1, uv2 = g[:, 9:11], g[:, 11:13], g[:, 13:15]
+    mat = g[:, 15].detach().view(torch.int32)
+    n = cross(v1 - v0, v2 - v0)
+
+    ndir = dot(n, dir)
+    d = -dot(n, v0)
+    safe = torch.where(ndir == 0.0, -1.0, ndir)
+    t = -(dot(n, org) + d) / safe
+    p = org + t[..., None] * dir
+
+    # inverse-distance "barycentric" weights (model.h:157-166); uv feeds
+    # only nearest-neighbour lookups, so its gradient is stopped
+    def invdist(v):
+        dv = p - v
+        return 1.0 / maximum(safe_sqrt(dot(dv, dv)), 1e-20)
+
+    r0, r1, r2 = invdist(v0), invdist(v1), invdist(v2)
+    denom = r0 + r1 + r2
+    r0, r1, r2 = r0 / denom, r1 / denom, r2 / denom
+    u = r0 * uv0[..., 0] + r1 * uv1[..., 0] + r2 * uv2[..., 0]
+    v = 1.0 - (r0 * uv0[..., 1] + r1 * uv1[..., 1] + r2 * uv2[..., 1])
+    uv = torch.stack([u, v], dim=-1).detach()
+
+    outward = unit_vector(n)
+    # back-face culling guarantees front hits (model.h:122-123)
+    front = dot(dir, outward) < 0.0
+    normal = torch.where(front[..., None], outward, -outward)
+
+    # tangent basis from UV-space edge deltas (model.h:214-235)
+    e0 = v1 - v0
+    e1 = v2 - v0
+    duv0 = uv1 - uv0
+    duv1 = uv2 - uv0
+    f = duv0[..., 0] * duv1[..., 1] - duv1[..., 0] * duv0[..., 1]
+    f = torch.where(f == 0.0, EPSILON, f)
+    inv_f = 1.0 / f
+    tangent = unit_vector(
+        inv_f[..., None] * (duv1[..., 1:2] * e0 - duv0[..., 1:2] * e1))
+    bitangent = unit_vector(
+        inv_f[..., None] * (-duv1[..., 0:1] * e0 + duv0[..., 0:1] * e1))
+    return p, normal, tangent, bitangent, uv, t, front, mat
+
+
+def _sphere_record(scene, org, dir, time, sph_id, t_min):
+    """Recompute the sphere hit data for known winners (sphere.h:54-106),
+    from one packed-row gather ``[S, 10]`` (intersect.py:380-439)."""
+    f32 = torch.float32
+    i = torch.clamp(sph_id, 0, max(scene.sph_c0.shape[0] - 1, 0))
+    pack = torch.cat(
+        [scene.sph_c0, scene.sph_c1, scene.sph_t0[:, None],
+         scene.sph_t1[:, None], scene.sph_radius[:, None],
+         scene.sph_mat.view(f32)[:, None]], dim=1,
+    )  # [S, 10]
+    g = table_lookup(pack, i)
+    c0, c1 = g[:, 0:3], g[:, 3:6]
+    t0, t1, r = g[:, 6], g[:, 7], g[:, 8]
+    mat = g[:, 9].detach().view(torch.int32)
+    moving = torch.any(c0 != c1, dim=-1)
+    denom = torch.where(t1 == t0, 1.0, t1 - t0)
+    frac = (time - t0) / denom
+    center = torch.where(moving[..., None], c0 + frac[..., None] * (c1 - c0),
+                         c0)
+    oc = org - center
+    a = dot(dir, dir)
+    half_b = dot(oc, dir)
+    c = dot(oc, oc) - r * r
+    disc = half_b * half_b - a * c
+    sqrtd = safe_sqrt(disc)  # finite gradient for non-winner garbage lanes
+    safe_a = torch.where(a == 0.0, 1.0, a)
+    root0 = (-half_b - sqrtd) / safe_a
+    root1 = (-half_b + sqrtd) / safe_a
+    t = torch.where(root0 >= t_min, root0, root1)
+    p = org + t[..., None] * dir
+    outward = unit_vector(p - center)  # no /radius (sphere.h:76)
+    front = dot(dir, outward) < 0.0
+    normal = torch.where(front[..., None], outward, -outward)
+
+    # spherical uv of the stop-gradient outward normal (sphere.h:32-38)
+    out_sg = outward.detach()
+    theta = torch.acos(clip(-out_sg[..., 1], -1.0, 1.0))
+    phi = torch.atan2(-out_sg[..., 2], out_sg[..., 0]) + PI
+    uv = torch.stack([phi / (2.0 * PI), theta / PI], dim=-1)
+
+    # tangent basis (sphere.h:96-106)
+    near_pole = (1.0 - torch.abs(outward[..., 1])) < EPSILON
+    b = torch.where(near_pole[..., None],
+                    outward.new_tensor([0.0, 0.0, -1.0]),
+                    outward.new_tensor([0.0, 1.0, 0.0]))
+    tangent = unit_vector(cross(b, outward))
+    bitangent = unit_vector(cross(outward, tangent))
+    return p, normal, tangent, bitangent, uv, t, front, mat
+
+
+def hit_data(scene, org, dir, time, prim_id, t_min=None) -> HitRecord:
+    """Differentiable hit record for rays whose winner is ``prim_id``
+    (intersect.py:442-512). Where ``prim_id < 0`` the record contents are
+    arbitrary but finite and ``hit`` is False."""
+    R = org.shape[0]
+    dev = org.device
+    t_min = _per_ray_t_min(t_min, org)
+    T = scene.tri_v0.shape[0]
+    S = scene.sph_c0.shape[0]
+    hit = prim_id >= 0
+    is_tri = hit & (prim_id < T)
+    is_sph = hit & (prim_id >= T)
+
+    tri = (_triangle_record(scene, org, dir, torch.where(is_tri, prim_id, 0))
+           if T > 0 else None)
+    sph = (_sphere_record(scene, org, dir, time,
+                          torch.where(is_sph, prim_id - T, 0), t_min)
+           if S > 0 else None)
+    if tri is None and sph is None:
+        zeros3 = torch.zeros((R, 3), device=dev)
+        return HitRecord(
+            p=zeros3, normal=zeros3, tangent=zeros3, bitangent=zeros3,
+            uv=torch.zeros((R, 2), device=dev),
+            t=torch.full((R,), float("inf"), device=dev),
+            front_face=torch.zeros((R,), dtype=torch.bool, device=dev),
+            mat_id=torch.zeros((R,), dtype=torch.int32, device=dev),
+            hit=torch.zeros((R,), dtype=torch.bool, device=dev),
+        )
+    if tri is None:
+        fields = sph
+    elif sph is None:
+        fields = tri
+    else:
+        fields = tuple(
+            torch.where(is_tri.reshape(is_tri.shape + (1,) * (a.ndim - 1)),
+                        a, b)
+            for a, b in zip(tri, sph))
+
+    p, normal, tangent, bitangent, uv, t, front, mat = fields
+    return HitRecord(
+        p=p, normal=normal, tangent=tangent, bitangent=bitangent, uv=uv,
+        t=torch.where(hit, t, float("inf")),
+        front_face=front & hit,
+        mat_id=torch.where(hit, mat, 0).to(torch.int32),
+        hit=hit,
+    )

@@ -29,17 +29,21 @@ from sexy_raytracer_tpu_torch.render.integrator import (
 from sexy_raytracer_tpu_torch.utils import color as colorlib
 from sexy_raytracer_tpu_torch.utils import rng
 from sexy_raytracer_tpu_torch.utils.config import RenderConfig
+from sexy_raytracer_tpu_torch.utils.profiling import Meter
 
 
 def render_pixels(scene, camera: Camera, pixel_ids, sample_start: int,
                   base_key, background, *, width: int, height: int,
                   spb: int, spp_total: int, max_bounce: int,
-                  method: str = "auto", last_bounce_vis: bool = False):
+                  method: str = "auto", fused=None,
+                  last_bounce_vis: bool = False):
     """Trace ``spb`` samples per pixel id -> radiance sums ``[C, 3]``.
 
     ``pixel_ids`` [C] int32 on the scene's device; samples
     ``sample_start .. sample_start + spb - 1``, of which those at or past
     ``spp_total`` are dropped (the overshoot mask, renderer.py:71-76).
+    ``fused=False`` traces with the reference integrator
+    (``integrator.trace_rays``).
     """
     C = pixel_ids.shape[0]
     dev = pixel_ids.device
@@ -56,7 +60,8 @@ def render_pixels(scene, camera: Camera, pixel_ids, sample_start: int,
 
     org, direction, ray_time = camera.get_rays(u, v, ucam[:, 2:5])
     radiance = trace_rays(scene, org, direction, ray_time, keys, background,
-                          max_bounce, method, last_bounce_vis=last_bounce_vis)
+                          max_bounce, method, fused=fused,
+                          last_bounce_vis=last_bounce_vis)
     radiance = torch.where((sid < spp_total)[:, None], radiance, 0.0)
     return radiance.reshape(C, spb, 3).sum(dim=1)
 
@@ -86,7 +91,9 @@ def render_accumulate(scene, config: RenderConfig, camera: Camera | None = None,
     resumable renders, with the JAX package's keys: after every
     (chunk, sample-batch) unit the accumulator and progress counter are
     saved; a rerun with the same config resumes, and the counter-based RNG
-    makes the result identical to an uninterrupted run.
+    makes the result identical to an uninterrupted run. ``progress``
+    prints a pixel counter and, at the end, the chunks' ``Meter`` report
+    (renderer.py:153-247).
     """
     W, H = config.width, config.height
     spp = config.samples_per_pixel
@@ -127,9 +134,8 @@ def render_accumulate(scene, config: RenderConfig, camera: Camera | None = None,
         elif progress:
             print(f"checkpoint {checkpoint} incompatible; restarting")
 
+    meter = Meter("render_accumulate")
     unit = 0
-    seconds = 0.0
-    paths = 0
     for start in range(0, P, chunk):
         ids = order[start:min(start + chunk, P)]
         n_valid = ids.shape[0]
@@ -143,6 +149,7 @@ def render_accumulate(scene, config: RenderConfig, camera: Camera | None = None,
                 continue
             if ids_dev is None:
                 chunk_t0 = time.perf_counter()
+                chunk_paths = 0
                 ids_dev = torch.from_numpy(ids).to(dev)
                 chunk_accum = torch.from_numpy(accum[ids]).to(dev)
             n_s = min(spb, spp - s0)  # final batch may be partial
@@ -152,12 +159,15 @@ def render_accumulate(scene, config: RenderConfig, camera: Camera | None = None,
                 max_bounce=config.max_bounce, method=method,
                 last_bounce_vis=vis_ok,
             )
-            paths += n_valid * n_s
+            chunk_paths += n_valid * n_s
             unit += 1
         if ids_dev is not None:
             # the download waits for the chunk: the sync point
             accum[ids[:n_valid]] = chunk_accum.cpu().numpy()[:n_valid]
-            seconds += time.perf_counter() - chunk_t0
+            meter.seconds += time.perf_counter() - chunk_t0
+            meter.paths += chunk_paths
+            meter.rays += chunk_paths * config.max_bounce
+            meter.steps += 1
             units_done = unit
             if checkpoint is not None:
                 np.savez(
@@ -168,9 +178,8 @@ def render_accumulate(scene, config: RenderConfig, camera: Camera | None = None,
         if progress:
             print(f"\rpixels {min(start + chunk, P)}/{P}", end="", flush=True)
     if progress:
-        rate = paths * config.max_bounce / max(seconds, 1e-9) / 1e6
-        print(f"\n{paths} paths in {seconds:.3f} s: {rate:.2f} Mrays/s",
-              flush=True)
+        print()
+        print(meter.report(), flush=True)
     return accum.reshape(H, W, 3)
 
 

@@ -53,5 +53,32 @@ def unit_vector(v):
     return torch.where(len2 == 0.0, v, v / safe_sqrt(len2))
 
 
+def near_zero(v):
+    # reference vec3.h:49
+    return torch.all(torch.abs(v) < 1e-8, dim=-1)
+
+
+def reflect(v, n):
+    # reference vec3.h:76
+    return v - 2.0 * dot(v, n)[..., None] * n
+
+
+def refract(uv, n, eta_i_over_eta_t):
+    # reference vec3.h:80-86 (safe_sqrt: finite gradient at the total
+    # internal reflection boundary)
+    cos_theta = minimum(dot(n, -uv), 1.0)
+    r_out_perp = eta_i_over_eta_t[..., None] * (uv + cos_theta[..., None] * n)
+    r_out_parallel = (
+        -safe_sqrt(torch.abs(1.0 - dot(r_out_perp, r_out_perp)))[..., None]
+        * n
+    )
+    return r_out_perp + r_out_parallel
+
+
+def normal_int_to_float(n):
+    """Map a 0-255-scale normal-map texel to [-1, 1] (reference vec3.h:103)."""
+    return (n - 128.0) / 128.0
+
+
 def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)

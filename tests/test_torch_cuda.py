@@ -4,7 +4,8 @@ on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 
 The kernels are built without FMA contraction and keep the plain
 versions' evaluation order, so the find kernels must return the same prim
-ids and t bits and the histogram the same sums; the fused kernels are held
+ids and t bits, the histogram the same sums and the sorted histogram's
+placement the same table; the fused kernels are held
 to the fused-math tolerance of tests/test_fused.py (atol 2e-5, rtol 1e-5).
 Their VJPs sum the adjoint in another order than autograd: atol 2e-5,
 rtol 1e-4, with a budget of ill-conditioned lanes (``checks.vjp_outside``),
@@ -315,3 +316,39 @@ def test_tri_brute_kernel_matches_plain(scene, dev):
     assert torch.equal(i_k, i_p)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
     assert (i_k >= 0).sum() > 100
+
+
+def test_place_kernel_matches_plain(dev):
+    """Kernel 10 bit-equal to ``place_plain`` and to itself on the same
+    glue outputs: C 1 to 16, a short last window, n_bins no multiple of
+    2048, no entries, all-unique ids, negative and out-of-range ids; the
+    whole sorted histogram against index_add_ within the prefix-sum bound
+    (2 n 2^-24 max|S| per channel)."""
+    r = np.random.default_rng(13)
+    for R, n_bins, C in ((131072, 524288, 8), (4000, 2049, 3),
+                         (20000, 6144, 16), (0, 300, 2), (2048, 4096, 4),
+                         (50000, 70001, 1)):
+        idx = r.integers(-100, n_bins + 100, R)
+        if R == 2048:
+            idx = np.arange(R) * 2
+        idx = torch.tensor(idx, dtype=torch.int32, device=dev)
+        vals = torch.tensor(r.normal(size=(R, C)), dtype=torch.float32,
+                            device=dev)
+        seg = thist.sorted_segments(idx, vals, n_bins)
+        before = thist.PLACE.launches
+        got = thist.place(*seg, n_bins)
+        again = thist.place(*seg, n_bins)
+        torch.cuda.synchronize()
+        assert thist.PLACE.launches == before + 2
+        want = thist.place_plain(*seg, n_bins)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        whole = thist.dense_histogram_sorted(idx, vals, n_bins)
+        keep = (idx >= 0) & (idx < n_bins)
+        lib = torch.zeros((n_bins, C), dtype=torch.float64, device=dev) \
+            .index_add_(0, idx[keep].long(), vals[keep].double())
+        order = torch.sort(torch.where(keep, idx.long(), n_bins),
+                           stable=True)[1]
+        max_s = vals[order].double().cumsum(0).abs().amax(0) if R else 0.0
+        assert bool(((whole.double() - lib).abs()
+                     <= 2 * R * 2.0 ** -24 * max_s).all())

@@ -1,12 +1,15 @@
-"""The port's dense histogram and the gradients of its row gathers against
-the JAX package (whose histogram runs its Pallas kernel in interpret mode
-here).
+"""The port's dense histograms (direct and sorted) and the gradients of its
+row gathers against the JAX package (whose histograms run their Pallas
+kernels in interpret mode here).
 
 The JAX kernel sums a bin's entries chunk by chunk in full-f32 MXU
 products, the port one entry at a time in ascending order, so the sums
 round differently: atol 1e-5, rtol 1e-5 for values of order one. The
 one-hot backward of small tables is a float32 matrix product on both
-sides: the same tolerance.
+sides: the same tolerance. The sorted histogram's bins are differences of
+float32 prefix sums: each side is held to float64 ``np.add.at`` within
+``2 n 2^-24 max|S|`` per channel (``_prefix_atol``), and the two sides to
+twice that.
 """
 
 import numpy as np
@@ -22,6 +25,16 @@ from sexy_raytracer_tpu_torch.ops import histogram as thist  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import lookup as tlookup  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain versions here work on small tensors; one intra-op thread
+    keeps them from contending with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _entries(seed, R, C, n_bins):
@@ -100,3 +113,107 @@ def test_atlas_lookup_gradient_matches_jax():
     (got,) = torch.autograd.grad(out, a, torch.from_numpy(g))
     assert got.shape == atlas.shape
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the sort-based histogram (histogram.py:108,270-346) and its placement
+# ---------------------------------------------------------------------------
+
+def _prefix_atol(idx, vals, n_bins):
+    """Per channel, ``2 n 2^-24 max_k |S_k|``: a bin of the sorted histogram
+    is a difference of two float32 prefix sums S of the id-sorted values,
+    so its error scales with the largest prefix sum (n entries)."""
+    idx = idx.astype(np.int64)
+    key = np.where((idx >= 0) & (idx < n_bins), idx, n_bins)
+    order = np.argsort(key, kind="stable")
+    S = np.cumsum(vals[order].astype(np.float64), axis=0)
+    max_s = np.abs(S).max(axis=0) if len(idx) else np.zeros(vals.shape[1])
+    return 2.0 * len(idx) * 2.0 ** -24 * max_s
+
+
+def _add_at(idx, vals, n_bins):
+    out = np.zeros((n_bins, vals.shape[1]), np.float64)
+    keep = (idx >= 0) & (idx < n_bins)
+    np.add.at(out, idx[keep], vals[keep].astype(np.float64))
+    return out
+
+
+def _sorted_cases():
+    """The shapes of tests/test_pallas_find.py:215-217 with a third of the
+    ids one hot bin, the all-unique case of :238-247, and ids out of range
+    on both sides (with all-zero rows, which this histogram keeps)."""
+    r = np.random.default_rng(21)
+    for R, N, C in [(5000, 10000, 8), (1000, 786432, 8), (4096, 4096, 3),
+                    (100, 2048, 1), (8192, 3042, 16)]:
+        idx = r.integers(0, N, size=R).astype(np.int32)
+        idx[: R // 3] = idx[0]
+        yield f"{R}x{N}x{C}", idx, r.normal(size=(R, C)).astype(np.float32), N
+    yield "all-unique", np.arange(2048, dtype=np.int32) * 2, \
+        np.ones((2048, 4), np.float32), 4096
+    idx, vals = _entries(5, 3000, 3, 2500)
+    yield "out-of-range", idx, vals, 2500
+
+
+@pytest.mark.parametrize("case", list(_sorted_cases()), ids=lambda c: c[0])
+def test_dense_histogram_sorted_matches_jax(case):
+    """Against JAX's dense_histogram_sorted (its _place_kernel in interpret
+    mode) and float64 np.add.at, each within the prefix-sum bound. The
+    bound is a worst case: measured, the port is at most 0.4% of it from
+    float64 (7.4e-6 absolute at most), JAX 0.7%, the two 0.8% apart."""
+    _, idx, vals, n_bins = case
+    want = np.asarray(jhist.dense_histogram_sorted(jnp.asarray(idx),
+                                                   jnp.asarray(vals), n_bins))
+    launches = thist.PLACE.launches
+    got = thist.dense_histogram_sorted(torch.from_numpy(idx),
+                                       torch.from_numpy(vals), n_bins)
+    assert thist.PLACE.launches == launches  # CPU: the plain version
+    assert got.shape == (n_bins, vals.shape[1]) and got.dtype == torch.float32
+    got = got.numpy()
+    atol = _prefix_atol(idx, vals, n_bins)
+    exact = _add_at(idx, vals, n_bins)
+    assert (np.abs(got - want) <= 2 * atol).all()  # two float32 roundings
+    assert (np.abs(got - exact) <= atol).all()
+    assert (np.abs(want - exact) <= atol).all()
+
+
+def test_place_plain_places_segment_sums():
+    """``place_plain`` puts each unique id's segment sum in its row, bit
+    for bit, and zeros elsewhere; the rows hold the float64 np.add.at sums
+    within the prefix-sum bound. Cases: C 1 to 16, a short last window, an
+    n_bins that is no multiple of 2048, no entries."""
+    r = np.random.default_rng(8)
+    for R, n_bins, C in [(3000, 5000, 1), (4000, 2049, 3), (20000, 6144, 16),
+                         (0, 300, 2), (500, 1, 5)]:
+        idx = r.integers(-3, n_bins + 3, R).astype(np.int32)
+        vals = r.normal(size=(R, C)).astype(np.float32)
+        tex_u, seg, win_starts = thist.sorted_segments(
+            torch.from_numpy(idx), torch.from_numpy(vals), n_bins)
+        nw = -(-n_bins // thist.WIN)
+        assert win_starts.shape == (nw + 1,) and int(win_starts[0]) == 0
+        assert int(win_starts[-1]) == tex_u.shape[0]
+        assert (tex_u[1:] > tex_u[:-1]).all()
+        bounds = torch.arange(nw + 1) * thist.WIN
+        for w in range(nw):  # window w's entries lie in its bins
+            t = tex_u[win_starts[w]:win_starts[w + 1]]
+            assert ((t >= bounds[w]) & (t < bounds[w + 1])).all()
+        out = thist.place_plain(tex_u, seg, win_starts, n_bins)
+        assert out.shape == (n_bins, C)
+        rows = tex_u.long()
+        assert torch.equal(out[rows].view(torch.int32), seg.view(torch.int32))
+        mask = torch.ones(n_bins, dtype=torch.bool)
+        mask[rows] = False
+        assert (out[mask] == 0).all()
+        assert (np.abs(out.numpy() - _add_at(idx, vals, n_bins))
+                <= _prefix_atol(idx, vals, n_bins)).all()
+
+
+def test_dense_histogram_sorted_counts_exact():
+    """Unit values: every prefix sum is an integer below 2^24, so the
+    counts are exact (tests/test_pallas_find.py:228-235)."""
+    r = np.random.default_rng(2)
+    idx = r.integers(0, 10000, size=5000).astype(np.int32)
+    idx[:2000] = idx[0]
+    vals = np.ones((5000, 4), np.float32)
+    got = thist.dense_histogram_sorted(torch.from_numpy(idx),
+                                       torch.from_numpy(vals), 10000)
+    np.testing.assert_array_equal(got.numpy(), _add_at(idx, vals, 10000))

@@ -43,3 +43,17 @@ def test_big_scene_modules_import_no_jax(module):
         cpp = "native/bvh_builder.cpp"
         assert (REPO / "sexy_raytracer_tpu_torch" / cpp).read_bytes() \
             == (REPO / "sexy_raytracer_tpu" / cpp).read_bytes()
+
+
+@pytest.mark.parametrize("module", ["ops/shade.py", "ops/histogram.py",
+                                    "utils/profiling.py", "tools/__init__.py",
+                                    "tools/profile.py", "tools/devtime.py",
+                                    "tools/prof_step.py",
+                                    "tools/prof_dump.py"])
+def test_tool_and_reference_modules_import_no_jax(module):
+    """The profiling tools and the reference integrator's modules are in
+    the scan and import none of it."""
+    path = REPO / "sexy_raytracer_tpu_torch" / module
+    assert path.exists()
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad

@@ -79,6 +79,16 @@ def scenes():
     return jax.device_put(np_scene), scene_from_numpy(np_scene, "cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain versions here work on small tensors; one intra-op thread
+    keeps them from contending with the suite's other workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cameras():
     return (JCamera.from_config(CFG.camera, CFG.aspect),
             TCamera.from_config(CFG.camera, CFG.aspect, device="cpu"))
