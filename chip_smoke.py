@@ -21,14 +21,21 @@ nonzero without a result line:
      autograd of the plain math, with at most 1% of the rays outside and
      those ill-conditioned (``checks.vjp_outside``), and a check shown to
      reject a zero VJP and each gradient row with its sign flipped
-     (``checks.vjp_check_power``); the histogram bit for bit against its
-     plain version and across two launches, and within float32 summation
-     error of ``index_add_`` on the kept rows, also at the chief atlas's
-     786,432 bins x 8 channels with 524,288 entries;
+     (``checks.vjp_check_power``); the histogram's three passes bit for
+     bit against its plan-order plain version and across two launches,
+     and within float32 summation error of ``index_add_`` on the kept
+     rows, also at the chief atlas's 786,432 bins x 8 channels with
+     524,288 entries and where one bin holds 90% of the entries;
    median times of kernel, plain version and (for the histogram) the one
    PyTorch call that computes the same function, from CUDA events, and the
    least time the card could take (bytes over 3.35 TB/s or float32
-   operations over 67 TFLOP/s, whichever is larger);
+   operations over 67 TFLOP/s, whichever is larger); the histogram's and
+   ``index_add_``'s device time per call and kernels per call from the
+   profiler; the host microseconds per kernel launch (``Kernel.launch``
+   and ``place``); the same device times of kernel 10's wrapper and
+   ``index_copy_``, and of the whole sorted histogram and ``index_add_``
+   (phase 8's first A/B shape; read here, early: later profiler runs lost
+   events);
 4. a full 1280x720, 8-spp, 4-bounce frame of the flagship stand-in scene
    through ``render_image``, with the launch counters reset before it and
    read after it: find 3 times, occlusion once, hit record and shade 4
@@ -116,7 +123,6 @@ OPS_PER_SPHERE_TEST = 31
 OPS_PER_BRUTE_PAIR = 64
 # the big scene: the tools/profile.py terrain, 2 * 389^2 triangles
 BIG_N, BIG_SPP = 389, 8
-TRAIN_PIXELS, TRAIN_SPB = 32768, 4          # bench.py:204-205
 
 
 def log(msg):
@@ -146,30 +152,6 @@ def time_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def capture_calls(modules, names, run):
-    """Run ``run()`` with each wrapper ``names[i]`` of ``modules[i]``
-    recording (copies of) the arguments of every call; returns
-    {name: [args, ...]} in call order."""
-    seen = {name: [] for name in names}
-    saved = []
-    for mod, name in zip(modules, names):
-        fn = getattr(mod, name)
-        saved.append((mod, name, fn))
-
-        def rec(*args, _fn=fn, _name=name):
-            seen[_name].append(tuple(
-                a.clone() if hasattr(a, "clone") else a for a in args))
-            return _fn(*args)
-
-        setattr(mod, name, rec)
-    try:
-        run()
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    return seen
 
 
 def elementwise_ops_per_ray(torch, fn, stacks):
@@ -216,12 +198,7 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available()"
                          " is false); the port's kernels need an NVIDIA GPU")
 
-    from sexy_raytracer_tpu_torch.diff.inverse import (
-        _loss_fn,
-        make_optimizer,
-        make_train_step,
-        sample_tile_ids,
-    )
+    from sexy_raytracer_tpu_torch.diff.inverse import _loss_fn, sample_tile_ids
     from sexy_raytracer_tpu_torch.diff.params import (
         DEFAULT_TRAINABLE,
         extract_params,
@@ -239,6 +216,13 @@ def main(argv=None) -> int:
     from sexy_raytracer_tpu_torch.ops.intersect import find_hit
     from sexy_raytracer_tpu_torch.render import integrator, renderer
     from sexy_raytracer_tpu_torch.render.camera import Camera
+    from sexy_raytracer_tpu_torch.tools import histogram_split
+    from sexy_raytracer_tpu_torch.tools.histogram_split import (
+        TRAIN_PIXELS,
+        TRAIN_SPB,
+        capture_calls,
+        run_steps,
+    )
     from sexy_raytracer_tpu_torch.utils import color, rng
     from sexy_raytracer_tpu_torch.utils.png import write_png
 
@@ -262,9 +246,9 @@ def main(argv=None) -> int:
             log(f"  ptxas: {line.strip()}")
 
     # ---- scene and frame configuration ---------------------------------
-    with tempfile.TemporaryDirectory() as no_assets:
-        scene, cfg = presets.flagship_standin(n=39, spp=8, height=720,
-                                              data_dir=no_assets, device=dev)
+    # the flagship stand-in at 720p, 8 spp, and the bench's train step
+    scene, cfg, camera, train_ids, train_tgt, train_step_fn = \
+        histogram_split.train_setup(dev)
     T = scene.num_triangles
     W, H, spp, spb = cfg.width, cfg.height, cfg.samples_per_pixel, \
         cfg.samples_per_batch
@@ -276,20 +260,10 @@ def main(argv=None) -> int:
         f"spheres, atlas {tuple(scene.shade_atlas.shape)}; {W}x{H}, {spp} "
         f"spp, {cfg.max_bounce} bounces, {chunk * spb} paths per chunk, "
         f"{n_chunks} chunks")
-    camera = Camera.from_config(cfg.camera, cfg.aspect, device=dev)
     base_key = rng.key(cfg.seed, device=dev)
     background = torch.tensor(cfg.background, device=dev)
     order = renderer.tile_pixel_order(W, H)
     vis_ok = integrator.scene_no_emissive_tris(scene)
-    train_ids = torch.from_numpy(sample_tile_ids(
-        np.random.default_rng(0), W, H, TRAIN_PIXELS)).to(dev)
-    train_tgt = torch.full((TRAIN_PIXELS, 3), 0.5, device=dev)
-
-    def train_step_fn():
-        step = make_train_step(cfg, make_optimizer(extract_params(scene),
-                                                   1e-3),
-                               spb=TRAIN_SPB, last_bounce_vis=vis_ok)
-        return step, step.init(extract_params(scene))
 
     # ---- 3. kernels against their plain versions -----------------------
     fwd_wrappers = [(find, "find_closest"), (find, "find_any"),
@@ -343,23 +317,10 @@ def main(argv=None) -> int:
     fuzz_inputs.update({k: v[-1] for k, v in capture_calls(
         *zip(*bwd_wrappers), fuzz_backward).items()})
 
-    # the chief atlas's size (histogram.py:207-209): 786,432 bins x 8,
-    # 524,288 entries in 128-entry screen tiles that each hit a 16 x 8
-    # texel patch, 10% random ids, 20% all-zero rows
-    wz = np.random.default_rng(9)
-    n_wide, r_wide = 768 * 1024, 524288
-    bx = wz.integers(0, 1024 - 16, r_wide // 128)
-    by = wz.integers(0, 768 - 8, r_wide // 128)
-    e = np.arange(128)
-    wide_idx = ((by[:, None] + e // 16) * 1024 + bx[:, None] + e % 16)
-    wide_idx = wide_idx.reshape(-1)
-    rnd = wz.random(r_wide) < 0.1
-    wide_idx[rnd] = wz.integers(0, n_wide, int(rnd.sum()))
-    wide_vals = wz.normal(size=(r_wide, 8))
-    wide_vals[wz.random(r_wide) < 0.2] = 0.0
-    wide_inputs = (torch.tensor(wide_idx, dtype=torch.int32, device=dev),
-                   torch.tensor(wide_vals, dtype=torch.float32, device=dev),
-                   n_wide)
+    # the chief atlas's size (786,432 bins x 8, 524,288 entries), and one
+    # bin holding 90% of the train step's 131,072 entries
+    wide_inputs = histogram_split.wide_input(dev)
+    skew_inputs = histogram_split.skewed_input(dev)
 
     # the whole integrator on the card against the same trace on the CPU,
     # where every wrapper runs its plain version (the path the CPU tests
@@ -481,8 +442,8 @@ def main(argv=None) -> int:
                                  "differ")
         if not torch.equal(bits, again.view(torch.int32)):
             raise AssertionError("dense_histogram: two launches differ")
-        # the wrapper's mask and sort feed kernel and plain version alike;
-        # index_add_ on the kept rows does not use them. Two summation
+        # index_add_ on the kept rows shares nothing with the kernel's
+        # passes or the plan-order plain version. Two summation
         # orders of a bin's n entries differ by at most 2 n u sum|v|
         # (u = 2^-24, the float32 bound of recursive summation)
         idx, vals, n_bins = inp
@@ -661,13 +622,57 @@ def main(argv=None) -> int:
             library=library_histogram(*inp) if hist else None)
         check_only(name, fuzz_inputs[name], check, "fuzz")
         if hist:
-            wide = record(name, handle, wide_inputs, check, kern, plain,
-                          bound_of, "wide",
-                          library=library_histogram(*wide_inputs))
-            records[name]["wide"] = {k: wide[k] for k in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}
-    del main_inputs, fuzz_inputs, wide_inputs
+            for label, hin in (("wide", wide_inputs), ("skewed", skew_inputs)):
+                rec = record(name, handle, hin, check, kern, plain, bound_of,
+                             label, library=library_histogram(*hin))
+                records[name][label] = {k: rec[k] for k in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
+
+    # device time per call from the profiler's device events (CUDA events
+    # around one call also count the host's launch gaps), early in the
+    # process: profiler runs long after the first one lost device events
+    def ms_text(ms):
+        return "not measured (events lost)" if ms is None else f"{ms:.4f} ms"
+
+    # kernel 7's device time per call, split by kernel, beside index_add_'s
+    for label, hin in (("main", main_inputs["dense_histogram"]),
+                       ("wide", wide_inputs), ("skewed", skew_inputs)):
+        dev_ms, n_k, by = histogram_split.device_split(
+            lambda: histogram.dense_histogram(*hin))
+        lib_ms, lib_k, _ = histogram_split.device_split(
+            library_histogram(*hin))
+        stats = histogram_split.segment_stats(*hin)
+        log(f"dense_histogram [{label}] device time per call by the "
+            f"profiler: {ms_text(dev_ms)} in {n_k:g} kernels ("
+            + ", ".join(f"{k.split('::')[-1].split('(')[0]} {v:.4f}"
+                        for k, v in by.items())
+            + f"); index_add_ {ms_text(lib_ms)} in {lib_k:g} kernels; "
+              f"{stats['kept']} of {stats['entries']} entries kept, longest "
+              f"segment {stats['longest_segment']}, {stats['bins_hit']} bins "
+              f"hit ({smi})")
+        if n_k > 3:
+            raise AssertionError(f"dense_histogram [{label}]: {n_k:g} device "
+                                 "kernels per call (at most 3)")
+        sub = records["dense_histogram"] if label == "main" \
+            else records["dense_histogram"][label]
+        sub.update(device_ms=dev_ms, kernels_per_call=n_k,
+                   library_device_ms=lib_ms, segments=stats)
+
+    # the launch path every kernel shares, on a launch that does no work
+    lp = histogram_split.launch_path_us(dev)
+    log(f"launch path, host us per call over {lp['calls']} calls ({smi}): "
+        f"Kernel.launch {lp['launch_us']:.2f}, place() {lp['place_us']:.2f}")
+    # kernel 10 (reported with its phase 8.1 record) and index_copy_, the
+    # whole sorted histogram and index_add_, at the tools' first A/B case
+    dev10 = histogram_split.place_split(dev)
+    log(f"device time per call by the profiler (atlas coherent, {smi}): "
+        + "; ".join(f"{k} {ms_text(v[0])} in {v[1]:g} kernels"
+                    for k, v in dev10.items())
+        + "; place_kernel alone " + (", ".join(
+            f"{v:.4f} ms" for name, v in dev10["place"][2].items()
+            if "place_kernel" in name) or "not among the events"))
+    del main_inputs, fuzz_inputs, wide_inputs, skew_inputs
 
     def reset_counts():
         torch.cuda.synchronize()
@@ -769,20 +774,13 @@ def main(argv=None) -> int:
 
     step, state = train_step_fn()
     params0 = {k: v.clone() for k, v in state.params.items()}
-    for i in range(2):  # warm-up
-        state, loss = step(state, scene, camera, train_ids, train_tgt,
-                           rng.key(100 + i, dev))
+    train_args = (scene, camera, train_ids, train_tgt)
+    state, _, _ = run_steps(step, state, *train_args, 2, 100, dev)  # warm-up
     n_steps = 8
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    t0 = time.perf_counter()
-    losses = []
-    for i in range(n_steps):
-        state, loss = step(state, scene, camera, train_ids, train_tgt,
-                           rng.key(i + 1, dev))
-        losses.append(loss)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / n_steps
+    state, losses, step_s = run_steps(step, state, *train_args, n_steps, 1,
+                                      dev)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     expect = {k.symbol: 0 for k in _cuda.KERNELS}
@@ -1103,13 +1101,6 @@ def main(argv=None) -> int:
         return lambda: torch.zeros((n_bins, v.shape[1]), device=v.device) \
             .index_add_(0, i, v)
 
-    def library_place(tex_u, seg, win_starts, n_bins):
-        """The one PyTorch call for the placement: index_copy_ into
-        zeros."""
-        i = tex_u.long()
-        return lambda: torch.zeros((n_bins, seg.shape[1]), device=seg.device) \
-            .index_copy_(0, i, seg)
-
     def check_place(inp):
         got = histogram.place(*inp)
         again = histogram.place(*inp)
@@ -1159,52 +1150,27 @@ def main(argv=None) -> int:
             vals.numel(), "one add per entry and channel"
 
     # 8.1 kernel 10 at the tools' A/B shapes, and the whole wrapper
-    ab, main_glue = [], None
+    ab = []
     for case, idx, vals, n_bins in tprofile.histogram_inputs(
             tprofile.HISTOGRAM_CASES, dev):
         glue = (*histogram.sorted_segments(idx, vals, n_bins), n_bins)
         k10 = record("place", histogram.PLACE, glue, check_place,
                      histogram.place, histogram.place_plain, place_bound,
-                     case, library=library_place(*glue))
+                     case, library=histogram_split.index_copy(*glue))
         k10w = record("dense_histogram_sorted", histogram.PLACE,
                       (idx, vals, n_bins), check_sorted,
                       histogram.dense_histogram_sorted,
                       histogram.dense_histogram_sorted_plain, sorted_bound,
                       case, library=library_sorted(idx, vals, n_bins))
         ab.append((k10, k10w))
-        if not main_glue:
-            main_glue = (glue, (idx, vals, n_bins))
 
-    # the same calls' device time alone, from the profiler's device events
-    # (CUDA events around one call also count the host's launch gaps)
-    def device_ms(fn, n=10):
-        _, ev = devtime.profile_events(fn, [()], n)
-        by = {}
-        for _, name, us in ev:
-            by[name] = by.get(name, 0.0) + us / 1e3 / n
-        return sum(by.values()), by
-
-    glue, whole = main_glue
-    dev10 = {
-        "place": device_ms(lambda: histogram.place(*glue)),
-        "index_copy_": device_ms(library_place(*glue)),
-        "dense_histogram_sorted": device_ms(
-            lambda: histogram.dense_histogram_sorted(*whole)),
-        "index_add_": device_ms(library_sorted(*whole)),
-    }
-    log(f"device time per call by the profiler ({ab[0][0]['case']}, {smi}): "
-        + "; ".join(f"{k} {v[0]:.4f} ms in {len(v[1])} kernels"
-                    for k, v in dev10.items())
-        + "; place_kernel alone " + ", ".join(
-            f"{v:.4f} ms" for name, v in dev10["place"][1].items()
-            if "place_kernel" in name))
     keys10 = ("case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms", "max_abs_err")
     records["place"] = ab[0][0]
     records["place"]["ab"] = [{k: r[k] for k in keys10} for r, _ in ab]
     records["place"]["wrapper"] = [{k: r[k] for k in keys10} for _, r in ab]
     records["place"]["device_ms"] = {k: v[0] for k, v in dev10.items()}
-    del main_glue, glue, whole
+    records["place"]["launch_path_us"] = lp
     fz8 = np.random.default_rng(8)
     extra = [("all-unique",
               torch.arange(2048, dtype=torch.int32, device=dev) * 2,
@@ -1330,10 +1296,12 @@ def main(argv=None) -> int:
     _, ev = devtime.profile_events(
         lambda: histogram.dense_histogram_sorted(*probe), [()], 1)
     seen = {e[1] for e in ev} | set(xplane_rows)
-    found = {fn: any(f"::{fn}(" in s for s in seen) for fn in (
-        "find_closest_kernel", "hitrec_kernel", "shade_kernel",
-        "hitrec_bwd_kernel", "shade_bwd_kernel", "histogram_kernel",
-        "place_kernel")}
+    found = {fn: any(f"::{fn}(" in s or f"::{fn}<" in s for s in seen)
+             for fn in ("find_closest_kernel", "hitrec_kernel",
+                        "shade_kernel", "hitrec_bwd_kernel",
+                        "shade_bwd_kernel", "chunk_reduce_kernel",
+                        "window_combine_kernel", "slice_sum_kernel",
+                        "place_kernel")}
     log(f"torch.profiler device events name the kernels: {found}")
     bigscene_out = os.path.splitext(args.out)[0] + "_bigscene.json"
     big_rows = tprofile.cmd_bigscene(dev, bigscene_out,

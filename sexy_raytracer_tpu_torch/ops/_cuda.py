@@ -6,22 +6,29 @@ The library is keyed by a hash of the sources and flags, and lives under
 ``build/sexy_raytracer_tpu_torch/`` at the repository root, so a checkout
 builds what its own sources say. Nothing here runs at import.
 
-Every C entry point launches one kernel on the stream it is given and
-returns ``cudaGetLastError()``; ``Kernel.launch`` raises on a nonzero
-code and counts the launch. FMA contraction is off (``-fmad=false``) and
-divide and sqrt stay IEEE (no fast math), so a kernel rounds exactly like
-its plain PyTorch version, which runs one operation at a time.
+Every C entry point launches its kernels (one, or the dense histogram's
+passes) on the stream it is given and returns ``cudaGetLastError()``;
+``Kernel.launch`` raises on a nonzero code and counts the launch. The
+launch path runs on every call of every kernel, so it does the least it
+can: the entry and its argument types are bound once, pointers travel as
+plain ints, and the device guard is entered only for a tensor on another
+device than the current one. FMA contraction is off (``-fmad=false``)
+and divide and sqrt stay IEEE (no fast math), so a kernel rounds exactly
+like its plain PyTorch version, which runs one operation at a time.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import numbers
 import os
 import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -100,41 +107,91 @@ def library():
     return _lib
 
 
-def ptr(t) -> ctypes.c_void_p:
+def ptr(t) -> int:
     """A tensor's device address for a kernel argument."""
-    return ctypes.c_void_p(t.data_ptr())
+    return t.data_ptr()
+
+
+# argument kinds of a C entry: a pointer (a ``ptr`` value), an int, a float
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_KINDS = {"p": int, "i": int, "f": float}
+
+
+def _current_device() -> int:
+    return torch.cuda.current_device()
+
+
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index``, as a handle."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 class Kernel:
     """One C entry point of the library, with a count of its launches.
+
+    ``signature`` names the entry's arguments before the stream, one letter
+    each: ``p`` a device pointer (``ptr``), ``i`` a C int, ``f`` a C float.
+    The entry is looked up and its ctypes argument types are set once, at
+    the first launch; every launch must pass Python ints and floats of
+    these kinds, or raises.
 
     ``launches`` grows by one each time ``launch`` has started the kernel;
     a run can set it to 0 and read it back to show which kernels it went
     through.
     """
 
-    def __init__(self, symbol: str, source: str, replaces: str):
+    def __init__(self, symbol: str, signature: str, source: str,
+                 replaces: str):
         self.symbol = symbol
+        self.signature = signature
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self._kinds = tuple(_KINDS[k] for k in signature)
+        self._fn = None
         KERNELS.append(self)
 
-    def launch(self, device, *args) -> None:
-        """Call the entry with ``args`` (``ptr`` values, ints and Python
-        floats, passed as C floats) plus the current stream of ``device``;
-        raise if the launch failed."""
-        import torch
+    def _bind(self):
+        fn = getattr(library(), self.symbol)
+        fn.argtypes = [_CTYPES[k] for k in self.signature] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self._fn = fn
+        return fn
 
-        cargs = [a if isinstance(a, ctypes.c_void_p)
-                 else ctypes.c_float(a) if isinstance(a, float)
-                 else ctypes.c_int(a) for a in args]
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            fn = getattr(library(), self.symbol)
-            fn.argtypes = [type(a) for a in cargs] + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            err = fn(*cargs, ctypes.c_void_p(stream))
+    def _check(self, args) -> tuple:
+        """``args`` as the signature's Python kinds (numpy integers become
+        ints); raise on any other kind or count."""
+        if len(args) == len(self._kinds):
+            out = []
+            for a, kind in zip(args, self._kinds):
+                if kind is int and isinstance(a, numbers.Integral) \
+                        and not isinstance(a, bool):
+                    out.append(int(a))
+                elif kind is float and isinstance(a, float):
+                    out.append(float(a))
+                else:
+                    break
+            else:
+                return tuple(out)
+        raise TypeError(
+            f"{self.symbol}: arguments of kinds "
+            f"{[type(a).__name__ for a in args]} do not match the signature "
+            f"{self.signature!r} ({len(self._kinds)} arguments)")
+
+    def launch(self, device, *args) -> None:
+        """Call the entry with ``args`` plus the current stream of
+        ``device`` (a CUDA ``torch.device``); raise if the arguments do not
+        match the signature or the launch failed."""
+        if tuple(map(type, args)) != self._kinds:
+            args = self._check(args)
+        fn = self._fn or self._bind()
+        current = _current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            err = fn(*args, _raw_stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, _raw_stream(index))
         if err != 0:
             msg = library().srt_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")

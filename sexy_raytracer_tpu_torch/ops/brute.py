@@ -42,7 +42,8 @@ _BIG = 3.0e38
 _PLAIN_ROWS = 8192
 
 TRI_BRUTE = _cuda.Kernel(
-    "srt_tri_brute", source="sexy_raytracer_tpu_torch/csrc/find.cu",
+    "srt_tri_brute", "pppifiipp",
+    source="sexy_raytracer_tpu_torch/csrc/find.cu",
     replaces="sexy_raytracer_tpu/ops/pallas_intersect.py:53 (_tri_kernel)",
 )
 

@@ -71,15 +71,18 @@ MAX_SUPERS = 1024
 STREAM_RAY_BLOCK = 512
 
 FIND_CLOSEST = _cuda.Kernel(
-    "srt_find_closest", source="sexy_raytracer_tpu_torch/csrc/find.cu",
+    "srt_find_closest", "pippiipiiiipp",
+    source="sexy_raytracer_tpu_torch/csrc/find.cu",
     replaces="sexy_raytracer_tpu/ops/pallas_find.py:170 (_find_kernel)",
 )
 FIND_ANY = _cuda.Kernel(
-    "srt_find_any", source="sexy_raytracer_tpu_torch/csrc/find.cu",
+    "srt_find_any", "pippiipiiiip",
+    source="sexy_raytracer_tpu_torch/csrc/find.cu",
     replaces="sexy_raytracer_tpu/ops/pallas_find.py:681 (_occluded_kernel)",
 )
 FIND_STREAMED = _cuda.Kernel(
-    "srt_find_streamed", source="sexy_raytracer_tpu_torch/csrc/find.cu",
+    "srt_find_streamed", "pippiiipiiiipp",
+    source="sexy_raytracer_tpu_torch/csrc/find.cu",
     replaces="sexy_raytracer_tpu/ops/pallas_find.py:893 "
              "(_find_streamed_kernel)",
 )

@@ -82,19 +82,23 @@ NSI = 6
 NSO = 16
 
 HITREC = _cuda.Kernel(
-    "srt_hitrec", source="sexy_raytracer_tpu_torch/csrc/fused.cu",
+    "srt_hitrec", "pip",
+    source="sexy_raytracer_tpu_torch/csrc/fused.cu",
     replaces="sexy_raytracer_tpu/ops/fused.py:442 (_hitrec_kernel)",
 )
 SHADE = _cuda.Kernel(
-    "srt_shade", source="sexy_raytracer_tpu_torch/csrc/fused.cu",
+    "srt_shade", "ppip",
+    source="sexy_raytracer_tpu_torch/csrc/fused.cu",
     replaces="sexy_raytracer_tpu/ops/fused.py:501 (_shade_kernel)",
 )
 HITREC_BWD = _cuda.Kernel(
-    "srt_hitrec_bwd", source="sexy_raytracer_tpu_torch/csrc/fused.cu",
+    "srt_hitrec_bwd", "ppip",
+    source="sexy_raytracer_tpu_torch/csrc/fused.cu",
     replaces="sexy_raytracer_tpu/ops/fused.py:446 (_hitrec_bwd_kernel)",
 )
 SHADE_BWD = _cuda.Kernel(
-    "srt_shade_bwd", source="sexy_raytracer_tpu_torch/csrc/fused.cu",
+    "srt_shade_bwd", "pppip",
+    source="sexy_raytracer_tpu_torch/csrc/fused.cu",
     replaces="sexy_raytracer_tpu/ops/fused.py:505 (_shade_bwd_kernel)",
 )
 

@@ -4,8 +4,9 @@ on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 
 The kernels are built without FMA contraction and keep the plain
 versions' evaluation order, so the find kernels must return the same prim
-ids and t bits, the histogram the same sums and the sorted histogram's
-placement the same table; the fused kernels are held
+ids and t bits, the histogram the same sums (in the order of its plan,
+``ops/histogram.plan``) and the sorted histogram's placement the same
+table; the fused kernels are held
 to the fused-math tolerance of tests/test_fused.py (atol 2e-5, rtol 1e-5).
 Their VJPs sum the adjoint in another order than autograd: atol 2e-5,
 rtol 1e-4, with a budget of ill-conditioned lanes (``checks.vjp_outside``),
@@ -41,6 +42,7 @@ from sexy_raytracer_tpu_torch.render.camera import Camera  # noqa: E402
 from sexy_raytracer_tpu_torch.render.integrator import (  # noqa: E402
     trace_rays_fused,
 )
+from sexy_raytracer_tpu_torch.tools import histogram_split  # noqa: E402
 from sexy_raytracer_tpu_torch.utils import rng  # noqa: E402
 
 TRAIN = DEFAULT_TRAINABLE + ("tri_v0", "tri_v1", "tri_v2")
@@ -250,6 +252,87 @@ def test_histogram_kernel_matches_plain(dev):
         want = thist.dense_histogram_plain(idx, vals, n_bins)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def _histogram_cases(dev):
+    """(label, idx, vals, n_bins): one bin holding 90% of the entries at
+    the train step's shape (128 slices), int64 ids over several slices of
+    several chunks with a row of 30 channels (512-bin windows), the chief
+    atlas's size (384 windows, one slice), strided views, and 5,000,000
+    bins (64-bit sort keys)."""
+    r = np.random.default_rng(12)
+    idx = r.integers(-100, 9100, 300000)
+    idx[:5000] = 7
+    vals = r.normal(size=(300000, 30))
+    vals[r.random(300000) < 0.3] = 0.0
+    yield ("skewed", *histogram_split.skewed_input(dev))
+    yield ("sliced int64 C=30",
+           torch.tensor(idx, dtype=torch.int64, device=dev),
+           torch.tensor(vals, dtype=torch.float32, device=dev), 9000)
+    yield ("wide", *histogram_split.wide_input(dev))
+    # views, read through their strides: every other id of an int64
+    # tensor, and the values as the transpose of a [C, R] tensor
+    idx = torch.tensor(r.integers(-10, 1100, 2 * 131072), dtype=torch.int64,
+                       device=dev)[::2]
+    vals = torch.tensor(r.normal(size=(8, 131072)), dtype=torch.float32,
+                        device=dev).t()
+    yield ("strided views", idx, vals, 1024)
+    # past 2^22 bins the sort's keys are 64 bits wide
+    idx = r.integers(0, 5_000_000, 40000)
+    idx[:3000] = 4_999_999
+    yield ("5,000,000 bins",
+           torch.tensor(idx, dtype=torch.int32, device=dev),
+           torch.tensor(r.normal(size=(40000, 2)), dtype=torch.float32,
+                        device=dev), 5_000_000)
+
+
+def test_histogram_kernel_skewed_sliced_and_wide(dev):
+    """The three passes bit-equal to the plan-order plain version and to a
+    second launch where one bin holds almost every entry, where the chunk
+    range is cut into slices of several chunks, at 786,432 and 5,000,000
+    bins, and on strided views."""
+    plans = []
+    for label, idx, vals, n_bins in _histogram_cases(dev):
+        plans.append(thist.plan(vals.shape[0], n_bins, vals.shape[1]))
+        before = thist.HISTOGRAM.launches
+        got = thist.dense_histogram(idx, vals, n_bins)
+        again = thist.dense_histogram(idx, vals, n_bins)
+        torch.cuda.synchronize()
+        assert thist.HISTOGRAM.launches == before + 2, label
+        want = thist.dense_histogram_plain(idx, vals, n_bins)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            label
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32)), \
+            label
+    assert [p.slices > 1 for p in plans] == [True, True, False, True,
+                                             False]
+    assert plans[1].per_slice > 1 and plans[1].win == 512
+
+
+def test_histogram_wrapper_runs_no_torch_glue(dev):
+    """One call of the CUDA wrapper: no torch op but the allocations of
+    ``out`` and the scratch (no sort, searchsorted or mask), and at most 3
+    device kernels, all of them the library's passes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, idx, vals, n_bins in _histogram_cases(dev):
+        thist.dense_histogram(idx, vals, n_bins)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            thist.dense_histogram(idx, vals, n_bins)
+            torch.cuda.synchronize()
+        events = prof.events()
+        ops = {e.name for e in events if e.device_type == DeviceType.CPU
+               and e.name.startswith("aten::")}
+        assert ops <= {"aten::empty", "aten::empty_strided",
+                       "aten::contiguous"}, (label, ops)
+        kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+        assert 1 <= len(kernels) <= 3, (label, kernels)
+        assert all(any(f"::{n}" in k for n in (
+            "chunk_reduce_kernel", "window_combine_kernel",
+            "slice_sum_kernel")) for k in kernels), (label, kernels)
 
 
 def test_train_gradients_on_card_match_cpu(scene, dev, small_cfg):

@@ -3,8 +3,9 @@ row gathers against the JAX package (whose histograms run their Pallas
 kernels in interpret mode here).
 
 The JAX kernel sums a bin's entries chunk by chunk in full-f32 MXU
-products, the port one entry at a time in ascending order, so the sums
-round differently: atol 1e-5, rtol 1e-5 for values of order one. The
+products, the port one entry at a time within a chunk and then chunk by
+chunk (``histogram.plan``), so the sums round differently: atol 1e-5,
+rtol 1e-5 for values of order one. The
 one-hot backward of small tables is a float32 matrix product on both
 sides: the same tolerance. The sorted histogram's bins are differences of
 float32 prefix sums: each side is held to float64 ``np.add.at`` within
@@ -63,17 +64,106 @@ def test_dense_histogram_plain_matches_jax(C, R, n_bins):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+def _plan_order_sums(idx, vals, n_bins):
+    """The plan's order in a numpy float32 loop: each chunk's entries in
+    ascending entry order, then each slice's chunk partials in ascending
+    chunk order, then the slices in ascending order, every sum from +0."""
+    R, C = vals.shape
+    p = thist.plan(R, n_bins, C)
+    zero = np.zeros(C, np.float32)
+    slice_sums = [{} for _ in range(p.slices)]
+    for k in range(p.n_chunks):
+        part = {}
+        for r in range(k * thist.CHUNK, min(R, (k + 1) * thist.CHUNK)):
+            i = int(idx[r])
+            if 0 <= i < n_bins and vals[r].any():
+                part[i] = part.get(i, zero) + vals[r]
+        acc = slice_sums[k // p.per_slice]
+        for i, v in part.items():
+            acc[i] = acc.get(i, zero) + v
+    out = np.zeros((n_bins, C), np.float32)
+    for acc in slice_sums:
+        for i, v in acc.items():
+            out[i] = out[i] + v
+    return p, out
+
+
+def _skewed(seed, R, C, n_bins, hot=0.9):
+    """One bin holds ``hot`` of the entries; 10% of the rows all zero."""
+    r = np.random.default_rng(seed)
+    idx = r.integers(0, n_bins, R)
+    idx[r.random(R) < hot] = n_bins // 3
+    vals = r.normal(size=(R, C))
+    vals[r.random(R) < 0.1] = 0.0
+    return idx.astype(np.int32), vals.astype(np.float32)
+
+
+# (name, idx, vals, n_bins, slices > 1): one chunk; many windows (so one
+# slice) over several chunks; several slices of one and of three chunks;
+# one hot bin; no kept entries; C 1, 3, 16 and 30 (the window narrows to
+# 1024 and 512 bins); int64 ids
+def _order_cases():
+    yield ("one chunk", *_entries(7, 1000, 3, 50), 50, False)
+    yield ("many windows", *_entries(8, 6000, 1, 600_000), 600_000, False)
+    yield ("slices of one chunk", *_entries(9, 5000, 3, 3001), 3001, True)
+    yield ("slices of three chunks", *_entries(10, 10000, 1, 135_168),
+           135_168, True)
+    yield ("skewed", *_skewed(11, 8000, 8, 1024), 1024, True)
+    idx, vals = _entries(12, 3000, 3, 500)
+    yield ("none kept", idx, np.where(idx[:, None] < 0, vals, 0.0)
+           .astype(np.float32), 500, True)
+    for C in (1, 3, 16, 30):
+        yield (f"C={C}", *_entries(20 + C, 3000, C, 2500), 2500, True)
+    idx, vals = _entries(13, 4000, 3, 5000)
+    yield ("int64 ids", idx.astype(np.int64), vals, 5000, True)
+
+
 def test_dense_histogram_sums_in_entry_order():
-    """Each bin is the float32 sum of its entries in ascending entry order,
-    which is what the CUDA kernel computes: the two agree bit for bit."""
+    """Each bin is the float32 sum in the plan's order (a chunk's entries
+    in ascending entry order, then the chunks, then the slices), which is
+    what the CUDA kernel computes: the plain version agrees with a numpy
+    loop over the plan bit for bit."""
     idx, vals = _entries(7, 2000, 3, 50)
+    p, want = _plan_order_sums(idx, vals, 50)
+    assert p.n_chunks == 2 and p.slices == 2
     got = thist.dense_histogram_plain(torch.from_numpy(idx),
                                       torch.from_numpy(vals), 50).numpy()
-    want = np.zeros((50, 3), np.float32)
-    for i, v in zip(idx, vals):
-        if 0 <= i < 50 and v.any():
-            want[i] = want[i] + v
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("case", list(_order_cases()), ids=lambda c: c[0])
+def test_dense_histogram_plan_order_cases(case):
+    """The plan's order on the cases above: the plain version agrees with a
+    numpy loop over the plan bit for bit, and with float64 np.add.at within
+    float32 summation error."""
+    name, idx, vals, n_bins, multi_slice = case
+    p, want = _plan_order_sums(idx, vals, n_bins)
+    assert (p.slices > 1) == multi_slice, p
+    got = thist.dense_histogram(torch.from_numpy(idx),
+                                torch.from_numpy(vals), n_bins).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    keep = vals.any(axis=1)
+    exact = _add_at(idx[keep], vals[keep], n_bins)
+    n = np.bincount(idx[keep & (idx >= 0) & (idx < n_bins)].astype(np.int64),
+                    minlength=n_bins)[:, None]
+    abs_sum = _add_at(idx[keep], np.abs(vals[keep]), n_bins)
+    assert (np.abs(got - exact) <= 2 * n * 2.0 ** -24 * abs_sum).all()
+    if name == "none kept":
+        assert not got.any()
+
+
+def test_plan():
+    """The plan at the main path's shapes: the train step's atlas (one
+    window, a slice per chunk), the chief atlas (384 windows, one slice),
+    a wide row (narrower windows), and no entries."""
+    assert thist.plan(131072, 1024, 8) == thist.Plan(128, 2048, 1, 128, 1)
+    assert thist.plan(524288, 786432, 8) == thist.Plan(512, 2048, 384, 1, 512)
+    assert thist.plan(4096, 3042, 30) == thist.Plan(4, 512, 6, 4, 1)
+    assert thist.plan(0, 100, 3) == thist.Plan(0, 2048, 1, 1, 1)
+    p = thist.plan(131072, 1024, 8)
+    assert p.slices * 1024 * 8 * 4 <= thist.SCRATCH_BYTES
+    with pytest.raises(ValueError):
+        thist.plan(10, 10, 20000)
 
 
 @pytest.mark.parametrize("n_rows", [5, 1024, 1025, 3042])

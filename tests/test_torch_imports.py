@@ -49,7 +49,8 @@ def test_big_scene_modules_import_no_jax(module):
                                     "utils/profiling.py", "tools/__init__.py",
                                     "tools/profile.py", "tools/devtime.py",
                                     "tools/prof_step.py",
-                                    "tools/prof_dump.py"])
+                                    "tools/prof_dump.py",
+                                    "tools/histogram_split.py"])
 def test_tool_and_reference_modules_import_no_jax(module):
     """The profiling tools and the reference integrator's modules are in
     the scan and import none of it."""
