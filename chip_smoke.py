@@ -12,8 +12,8 @@ nonzero without a result line:
    main paths' shapes and on a 4,096-ray fuzz wavefront:
    * forward kernels on the 524,288-ray chunk through the centre of the
      720p frame: the find kernels must return the same prim ids and
-     occlusion flags, or differ only on near ties (for a flag: the closest
-     occluder, emissive spheres excluded, lies at the ray's bound); the
+     occlusion flags (closest hit: or differ only on near ties), kernel
+     2's regrouping pass the same ray table and permutation; the
      fused kernels must agree within atol 2e-5, rtol 1e-5;
    * backward kernels on the inputs of one train step (131,072 paths) and
      of the fuzz wavefront's backward: the hit-record and shade VJPs, with
@@ -38,8 +38,8 @@ nonzero without a result line:
    events);
 4. a full 1280x720, 8-spp, 4-bounce frame of the flagship stand-in scene
    through ``render_image``, with the launch counters reset before it and
-   read after it: find 3 times, occlusion once, hit record and shade 4
-   times per chunk, no backward kernel; the image must vary, the radiance
+   read after it: find 3 times, occlusion and its regrouping pass once,
+   hit record and shade 4 times per chunk, no backward kernel; the image must vary, the radiance
    be finite, a second frame be identical, and at least 5% of primary rays
    must first hit a triangle;
 5. frame time and Mrays/s (paths x 4 bounces);
@@ -48,27 +48,36 @@ nonzero without a result line:
    relative gradient 1e-2, bench.py:192), then 2 warm-up and 8 timed steps
    of ``make_train_step`` with ``make_optimizer(params, 1e-3)`` on 32,768
    pixels at spb 4 with the launch counters reset before the timed steps:
-   per step find 3, occlusion 1, hit record 4, shade 4 and each backward
-   kernel 4 times; every trained parameter must move and stay finite.
+   per step find 3, occlusion and its pass 1, hit record 4, shade 4 and
+   each backward kernel 4 times; every trained parameter must move and
+   stay finite.
 
 7. the big scene, ``flagship_standin(n=389)``: 302,642 triangles in 1,183
    clusters (past the resident find's 120,000-triangle limit and the
-   per-ray cull's 512 clusters), 74 superclusters of 16, its BVH built by
-   the native builder (name and time printed):
-   * the streamed find (kernel 8) against its plain version on the mid
-     chunk's bounce-1 wavefront (524,288 rays; timed with the plain
-     version and the bound) and on 8,192-ray sub-wavefronts of bounce 0
-     and bounce 1 where the primary rays hit the most triangles, and on
-     the fuzz wavefront; the brute-force find (kernel 9) on the bounce-1
-     sub-wavefront and the fuzz wavefront, and timed on the n = 39
-     stand-in with the mid chunk's 524,288 camera rays after a counted
-     run of its own path, ``find_hit(method="pallas_mxu")``; prim ids
-     equal or near ties;
+   per-ray cull's 512 clusters), its BVH built by the native builder (name
+   and time printed):
+   * the streamed find (kernel 8) against its plain version at each
+     bounce of the mid chunk (524,288 rays; t bit for bit, prim ids equal
+     or near ties; timed with the plain version and the bound from the
+     tests the rays need, the executed and live tests beside it), and on
+     8,192-ray sub-wavefronts of bounce 0 and bounce 1 where the primary
+     rays hit the most triangles, and on the fuzz wavefront; occlusion
+     (kernel 2) and its regrouping pass against their plain versions on
+     the chunk's last-bounce wavefront, timed likewise, flags, ray tables
+     and permutations equal; kernels 8 and 2 and the pass on
+     ``checks.hard_wavefronts``: most lanes dying on the ground sphere,
+     whole blocks dead, and rays through vertices and edges that clusters
+     share (exact ties), kernel 2's flags also equal to those that
+     kernel 8's closest hits imply (``checks.occlusion_by_closest_hit``); the brute-force find (kernel 9) on the
+     bounce-1 sub-wavefront and the fuzz wavefront, and timed on the
+     n = 39 stand-in with the mid chunk's 524,288 camera rays after a
+     counted run of its own path, ``find_hit(method="pallas_mxu")``;
    * four referees (streamed, resident on block-culled lists, BVH,
      bruteforce) agree on 65,536 tile-ordered primary rays, with kernel
-     1's and kernel 8's times at that shape;
+     1's and kernel 8's times and tests at that shape;
    * a counted 1280x720, ``BIG_SPP``-spp, 4-bounce frame: per chunk the
-     streamed find 3 times, occlusion once, hit record and shade 4 times,
+     streamed find 3 times, occlusion and its pass once, hit record and
+     shade 4 times,
      no other kernel; finite, repeatable, at least 5% of primary rays on
      a triangle; its time and Mrays/s.
 
@@ -205,6 +214,7 @@ def main(argv=None) -> int:
     )
     from sexy_raytracer_tpu_torch import checks
     from sexy_raytracer_tpu_torch.models import bvh, presets
+    from sexy_raytracer_tpu_torch.models.scene import MAT_LIGHT
     from sexy_raytracer_tpu_torch.ops import (
         _cuda,
         brute,
@@ -266,7 +276,8 @@ def main(argv=None) -> int:
     vis_ok = integrator.scene_no_emissive_tris(scene)
 
     # ---- 3. kernels against their plain versions -----------------------
-    fwd_wrappers = [(find, "find_closest"), (find, "find_any"),
+    fwd_wrappers = [(find, "find_closest"), (find, "any_regroup"),
+                    (find, "find_any"),
                     (integrator, "hitrec_fused"),
                     (integrator, "shade_carry_fused")]
     bwd_wrappers = [(fused, "hitrec_bwd"), (fused, "shade_bwd"),
@@ -339,15 +350,6 @@ def main(argv=None) -> int:
     if float(close.float().mean()) < 0.995:
         raise AssertionError("card and CPU traces disagree on > 0.5% of rays")
 
-    def closest_occluder(rays, tri, sph, n):
-        """(prim, t) of the closest occluder of each ray in a ray table:
-        every triangle, and the spheres the occlusion pack marks valid
-        (emissive spheres are cleared there), from the plain version."""
-        rt, nb = find._ray_table(list(rays[:, :8].unbind(1)), {7: 3.0e38})
-        lists = find._uncull_lists(nb, tri.shape[0], rays.device)
-        t, prim = find.find_closest_plain(lists, rt, tri, sph, n)
-        return prim[:rays.shape[0]], t[:rays.shape[0]]
-
     def near_tie(a, b):
         a = torch.where(torch.isfinite(a) & (a < 1e38), a, 1e30)
         b = torch.where(torch.isfinite(b) & (b < 1e38), b, 1e30)
@@ -367,24 +369,29 @@ def main(argv=None) -> int:
         return err, n_dis, f"{n_dis} of {p_k.numel()} prim ids differ " \
                            f"(near ties), {int((p_k >= 0).sum())} hits"
 
+    def check_any_regroup(inp):
+        got = find.any_regroup(*inp)
+        want = find.any_regroup_plain(*inp)
+        for name, g, w in zip(("rays", "perm", "cull t_min", "cull t_max"),
+                              got, want):
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"any_regroup: {name} differs from the "
+                                     "plain version")
+        live = int((got[0][:, 8] >= 0.0).sum())
+        return 0.0, 0, f"rays, perm and cull bounds bit-equal to the " \
+                       f"plain version; {live} of {got[0].shape[0]} rays live"
+
     def check_find_any(inp):
-        lists, rays, tri, sph, n = inp
-        o_k = find.find_any(lists, rays, tri, sph, n)
-        o_p = find.find_any_plain(lists, rays, tri, sph, n)
-        dis = (o_k != o_p).nonzero().squeeze(1)
-        if dis.numel():
-            # a flag may flip only where the closest occluder lies at the
-            # bound (the emissive hit's t) within the near-tie rule
-            p_c, t_c = closest_occluder(rays[dis], tri, sph, n)
-            bound = rays[dis, 8]
-            if not bool(((p_c >= 0) & (bound > 0.0)
-                         & near_tie(t_c, bound)).all()):
-                raise AssertionError(f"find_any: {dis.numel()} flags differ "
-                                     "beyond a near tie with the bound")
-        err = float((o_k - o_p).abs().max())
-        return err, int(dis.numel()), \
-            f"{dis.numel()} of {o_k.numel()} flags differ (near ties), " \
-            f"{int(o_k.sum())} occluded"
+        o_k = find.find_any(*inp)
+        o_p = find.find_any_plain(*inp)
+        n_dis = int((o_k != o_p).sum())
+        if n_dis:
+            raise AssertionError(f"find_any: {n_dis} flags differ from the "
+                                 "plain version")
+        live = int((inp[1][:, 8] >= 0.0).sum())
+        return 0.0, 0, f"flags equal; {int(o_k.sum())} of {o_k.numel()} " \
+                       f"occluded; {live} live rays regrouped into " \
+                       f"{-(-live // find.RAY_BLOCK)} blocks"
 
     def check_fused(kernel, plain):
         def check(inp):
@@ -475,28 +482,18 @@ def main(argv=None) -> int:
     def bytes_of(*tensors, out=()):
         return sum(t.numel() * t.element_size() for t in (*tensors, *out))
 
-    def find_pairs(closest, lists, rays, tri, sph, n,
-                   ray_block=find.RAY_BLOCK, group=1):
-        """(ray, triangle) tests a find kernel makes on these inputs: the
-        walk of ``find_closest_plain`` / ``find_any_plain`` /
-        ``find_streamed_plain`` (``group`` tiles of ``tri`` per list
-        entry), counting each lane of a block for every tile the block
-        visits (closest hit), or each live lane up to its first occluder
-        (any hit)."""
-        RB, BIG = ray_block, find._BIG
-        nc, ck = tri.shape[0] // group, tri.shape[2]
+    def find_pairs(lists, rays, tri, sph, n):
+        """(ray, triangle) tests kernel 1 makes on these inputs: the walk of
+        ``find_closest_plain``, counting each lane of a block for every
+        tile the block visits."""
+        RB, BIG = find.RAY_BLOCK, find._BIG
+        nc = tri.shape[0]
         if n == 0 or nc == 0:
             return 0
         pairs = 0
         for b0, b1 in find._block_chunks(rays.shape[0] // RB, tri, RB):
             rb = rays[b0 * RB:b1 * RB]
-            tc = find._sphere_tc(rb, sph)
-            if closest:
-                bnd = tc.amin(dim=1)
-            else:
-                occ = torch.where(tc < rb[:, 8, None], tc, BIG).amin(dim=1)
-                bnd = torch.where(occ < BIG, -BIG, rb[:, 8])
-            bnd = bnd.reshape(b1 - b0, RB)
+            bnd = find._sphere_tc(rb, sph).amin(dim=1).reshape(b1 - b0, RB)
             rays_b = rb.reshape(b1 - b0, RB, -1)
             lst = lists[b0:b1]
             active = torch.ones(b1 - b0, dtype=torch.bool, device=rays.device)
@@ -506,30 +503,51 @@ def main(argv=None) -> int:
                 blk = active.nonzero().squeeze(1)
                 if blk.numel() == 0:
                     break
-                for g in range(group):
-                    t, valid = find._tile_t(
-                        tri[lst[blk, 1 + k].long() * group + g], rays_b[blk])
-                    if closest:
-                        pairs += t.numel()
-                        tile_t = torch.where(valid, t, BIG).amin(dim=2)
-                        bnd[blk] = torch.minimum(bnd[blk], tile_t)
-                    else:
-                        hits = valid & (t < bnd[blk][..., None])
-                        hit = hits.any(dim=2)
-                        first = hits.to(torch.int32).argmax(dim=2) + 1
-                        tested = torch.where(hit, first, ck)
-                        pairs += int(torch.where(bnd[blk] > -BIG, tested, 0)
-                                     .sum())
-                        bnd[blk] = torch.where(hit, -BIG, bnd[blk])
+                t, valid = find._tile_t(tri[lst[blk, 1 + k].long()],
+                                        rays_b[blk])
+                pairs += t.numel()
+                tile_t = torch.where(valid, t, BIG).amin(dim=2)
+                bnd[blk] = torch.minimum(bnd[blk], tile_t)
         return pairs
 
-    def find_bound(name, inp):
+    def walk_bound(closest, scene_of):
+        """Bound of kernels 8 (closest) and 2 from the tests these inputs
+        need (``checks.walk_counts``), with the executed and live counts
+        beside it. Bytes: of the worklists, each row's count and its live
+        entries (an id and an entry distance each); every other input and
+        the output whole."""
+        def bound(inp):
+            sc_ = scene_of(inp)
+            c = checks.walk_counts(closest, inp, sc_.cluster_min,
+                                   sc_.cluster_max)
+            lists, rays = inp[0], inp[1]
+            n_sph = inp[4].shape[0] if closest else 0
+            ops = c["needed"] * OPS_PER_PAIR \
+                + rays.shape[0] * n_sph * OPS_PER_SPHERE_TEST
+            out = rays.shape[0] * (8 if closest else 4)
+            list_bytes = 4 * (lists.shape[0] + 2 * int(lists[:, 0].sum()))
+            return list_bytes + out + bytes_of(
+                *(x for x in inp[1:] if hasattr(x, "shape"))), ops, \
+                f"{c['needed']} needed (ray, triangle) tests, " \
+                f"{c['live']} live, {c['executed']} executed"
+        return bound
+
+    def regroup_bound(inp):
+        org, dir, time, t_min, t_bound, sph = inp
+        R = org.shape[0]
+        Rpad = -(-R // find.RAY_BLOCK) * find.RAY_BLOCK
+        # the ray table, perm and the cull's two bounds out
+        return bytes_of(org, dir, time, t_min, t_bound, sph) \
+            + Rpad * 4 * (9 + 1 + 2), \
+            R * sph.shape[0] * OPS_PER_SPHERE_TEST, \
+            f"{R} rays x {sph.shape[0]} sphere tests"
+
+    def find_bound(inp):
         lists, rays, tri, sph, n = inp
-        pairs = find_pairs(name == "find_closest", *inp)
+        pairs = find_pairs(*inp)
         ops = pairs * OPS_PER_PAIR \
             + rays.shape[0] * sph.shape[0] * OPS_PER_SPHERE_TEST
-        out_bytes = rays.shape[0] * (8 if name == "find_closest" else 4)
-        return bytes_of(lists, rays, tri, sph) + out_bytes, ops, \
+        return bytes_of(lists, rays, tri, sph) + rays.shape[0] * 8, ops, \
             f"{pairs} (ray, triangle) tests"
 
     def stack_bound(plain, inp, n_out_rows):
@@ -547,9 +565,12 @@ def main(argv=None) -> int:
     kernel_checks = {
         "find_closest": (check_find_closest, find.find_closest,
                          find.find_closest_plain, find.FIND_CLOSEST,
-                         lambda i: find_bound("find_closest", i)),
+                         find_bound),
+        "any_regroup": (check_any_regroup, find.any_regroup,
+                        find.any_regroup_plain, find.ANY_REGROUP,
+                        regroup_bound),
         "find_any": (check_find_any, find.find_any, find.find_any_plain,
-                     find.FIND_ANY, lambda i: find_bound("find_any", i)),
+                     find.FIND_ANY, walk_bound(False, lambda i: scene)),
         "hitrec_fused": (check_fused(fused.hitrec_fused, fused.hitrec_math),
                          fused.hitrec_fused, fused.hitrec_math, fused.HITREC,
                          lambda i: stack_bound(fused.hitrec_math, i,
@@ -693,6 +714,7 @@ def main(argv=None) -> int:
 
     expect = {k.symbol: 0 for k in _cuda.KERNELS}
     expect.update({"srt_find_closest": 3 * n_chunks, "srt_find_any": n_chunks,
+                   "srt_any_regroup": n_chunks,
                    "srt_hitrec": 4 * n_chunks, "srt_shade": 4 * n_chunks})
     log(f"frame launches: {counts} (expected {expect})")
     if counts != expect:
@@ -785,6 +807,7 @@ def main(argv=None) -> int:
     peak = torch.cuda.max_memory_allocated()
     expect = {k.symbol: 0 for k in _cuda.KERNELS}
     expect.update({"srt_find_closest": 3 * n_steps, "srt_find_any": n_steps,
+                   "srt_any_regroup": n_steps,
                    "srt_hitrec": 4 * n_steps, "srt_shade": 4 * n_steps,
                    "srt_hitrec_bwd": 4 * n_steps,
                    "srt_shade_bwd": 4 * n_steps,
@@ -853,25 +876,26 @@ def main(argv=None) -> int:
         v = ((H - (pid // W).float()) + uc[:, 1]) / (H - 1)
         return camera.get_rays(u, v, uc[:, 2:5])
 
-    # 7.1 kernels 8 and 9 against their plain versions
+    # 7.1 kernels 8, 2 and 9 against their plain versions
     big_ids = torch.from_numpy(order[mid:mid + big_chunk]).to(dev)
-    streamed_calls = capture_calls([find], ["find_streamed"], lambda: (
-        renderer.render_pixels(
-            big, camera, big_ids, 0, base_key, background, width=W,
-            height=H, spb=big_spb, spp_total=BIG_SPP,
-            max_bounce=big_cfg.max_bounce, last_bounce_vis=True)
-    ))["find_streamed"]
-    _, _, slabs, _, _, sc = streamed_calls[0]
-    NS = slabs.shape[0]
+    big_calls = capture_calls([find, find, find],
+                              ["find_streamed", "any_regroup", "find_any"],
+                              lambda: renderer.render_pixels(
+                                  big, camera, big_ids, 0, base_key,
+                                  background, width=W, height=H,
+                                  spb=big_spb, spp_total=BIG_SPP,
+                                  max_bounce=big_cfg.max_bounce,
+                                  last_bounce_vis=True))
+    streamed_calls = big_calls["find_streamed"]
     log(f"big scene: flagship stand-in n={BIG_N}, {TB} triangles in {NCB} "
-        f"clusters, {NS} superclusters of {sc}; scene built in "
-        f"{scene_s:.2f} s; BVH of {tree.left.shape[0]} nodes by the "
-        f"{builder} builder in {bvh_s:.3f} s; {W}x{H}, {BIG_SPP} spp, "
-        f"{big_chunk * big_spb} paths per chunk, {big_chunks} chunks")
+        f"clusters; scene built in {scene_s:.2f} s; BVH of "
+        f"{tree.left.shape[0]} nodes by the {builder} builder in "
+        f"{bvh_s:.3f} s; {W}x{H}, {BIG_SPP} spp, {big_chunk * big_spb} "
+        f"paths per chunk, {big_chunks} chunks")
 
     # sub-wavefronts of SUB rays: the run of blocks whose primary rays hit
-    # the most triangles, at bounce 0 and at bounce 1 (the plain versions
-    # are slow), and the fuzz wavefront
+    # the most triangles, at bounce 0 and at bounce 1 (kernel 9's plain
+    # version is slow), and the fuzz wavefront
     SUB = 8192
     RBS = find.STREAM_RAY_BLOCK
     nbs = SUB // RBS
@@ -880,10 +904,9 @@ def main(argv=None) -> int:
     b0 = int(on_tri.unfold(0, nbs, 1).sum(dim=1).argmax())
 
     def sub_streamed(call):
-        lists, rays, slabs_, sph, n, sc_ = call
+        lists, rays = call[:2]
         return (lists[b0:b0 + nbs].contiguous(),
-                rays[b0 * RBS:(b0 + nbs) * RBS].contiguous(),
-                slabs_, sph, n, sc_)
+                rays[b0 * RBS:(b0 + nbs) * RBS].contiguous(), *call[2:])
 
     fuzz_t_min = torch.full((4096,), 0.001, device=dev)
     streamed_cases = [
@@ -895,30 +918,19 @@ def main(argv=None) -> int:
     def check_find_streamed(inp):
         t_k, p_k = find.find_streamed(*inp)
         t_p, p_p = find.find_streamed_plain(*inp)
+        if not torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)):
+            raise AssertionError("find_streamed: t differs from the plain "
+                                 "version")
         dis = p_k != p_p
         n_dis = int(dis.sum())
         if n_dis and not bool(near_tie(t_k[dis], t_p[dis]).all()):
             raise AssertionError(f"find_streamed: {n_dis} prim ids differ "
                                  f"beyond the near-tie rule ({FIND_TIE})")
-        same = ~dis & (p_k >= 0)
-        err = float((t_k[same] - t_p[same]).abs().max()) if same.any() \
-            else 0.0
-        return err, n_dis, f"{n_dis} of {p_k.numel()} prim ids differ " \
-                           f"(near ties), {int((p_k >= 0).sum())} hits, " \
+        return 0.0, n_dis, f"t bit-equal, {n_dis} of {p_k.numel()} prim " \
+                           f"ids differ (near ties), " \
+                           f"{int((p_k >= 0).sum())} hits, " \
                            f"{int(((p_k >= 0) & (p_k < TB)).sum())} on " \
                            f"triangles"
-
-    def streamed_bound(inp):
-        lists, rays, slabs_, sph, n, sc_ = inp
-        tiles = slabs_.reshape(-1, 16, slabs_.shape[2])
-        pairs = find_pairs(True, lists, rays, tiles, sph, n,
-                           find.STREAM_RAY_BLOCK, sc_)
-        fetched = pairs // find.STREAM_RAY_BLOCK * 64
-        ops = pairs * OPS_PER_PAIR \
-            + rays.shape[0] * sph.shape[0] * OPS_PER_SPHERE_TEST
-        return bytes_of(lists, rays, slabs_, sph) + rays.shape[0] * 8, ops, \
-            f"{pairs} (ray, triangle) tests; the blocks fetch " \
-            f"{fetched / 1e6:.1f} MB of tiles"
 
     def check_tri_brute(inp):
         t_k, i_k = brute.tri_brute(*inp)
@@ -943,14 +955,61 @@ def main(argv=None) -> int:
     def brute_inputs(org, dir):
         return (*brute.ray4(org, dir), brute.build_weights(big), 0.001)
 
-    # kernel 8 at the frame chunk's full width, bounce 1 (the main shape)
-    records["find_streamed"] = record(
-        "find_streamed", find.FIND_STREAMED, streamed_calls[1],
-        check_find_streamed, find.find_streamed, find.find_streamed_plain,
-        streamed_bound, "chunk bounce 1", 5, 1)
-    del streamed_calls
+    # kernel 8 at the big frame chunk's full width, each bounce (bounce 1
+    # is the record's main shape), and kernel 2 on its last bounce
+    streamed_bound = walk_bound(True, lambda i: big)
+    per_bounce = []
+    for bounce, call in enumerate(streamed_calls):
+        rec = record("find_streamed", find.FIND_STREAMED, call,
+                     check_find_streamed, find.find_streamed,
+                     find.find_streamed_plain, streamed_bound,
+                     f"chunk bounce {bounce}", 5, 1)
+        per_bounce.append({k: rec[k] for k in (
+            "case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "mismatches")})
+        if bounce == 1:
+            records["find_streamed"] = rec
+    records["find_streamed"]["bounces"] = per_bounce
+    rec = record("find_any", find.FIND_ANY, big_calls["find_any"][0],
+                 check_find_any, find.find_any, find.find_any_plain,
+                 walk_bound(False, lambda i: big), "big chunk last bounce",
+                 10, 1)
+    records["find_any"]["big_last_bounce"] = {k: rec[k] for k in (
+        "case", "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+    rec = record("any_regroup", find.ANY_REGROUP,
+                 big_calls["any_regroup"][0], check_any_regroup,
+                 find.any_regroup, find.any_regroup_plain, regroup_bound,
+                 "big chunk last bounce", 10, 3)
+    records["any_regroup"]["big_last_bounce"] = {k: rec[k] for k in (
+        "case", "shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+    del streamed_calls, big_calls
     for label, inp in streamed_cases:
         check_only("find_streamed", inp, check_find_streamed, label)
+    # both kernels where most lanes die on the ground sphere, where whole
+    # blocks are dead, and on rays through vertices and edges that
+    # clusters share (exact ties); kernel 2's flags also against those
+    # that kernel 8's closest hits imply
+    emis_big = big.mat_type[big.sph_mat.long()] == MAT_LIGHT
+    for label, (o_h, d_h, t_h, tm_h, b_h) in \
+            checks.hard_wavefronts(big).items():
+        check_only("find_streamed",
+                   find.streamed_inputs(big, o_h, d_h, t_h, tm_h),
+                   check_find_streamed, label)
+        check_only("any_regroup", (o_h, d_h, t_h, tm_h, b_h,
+                                   find._pack_spheres(big, ~emis_big)),
+                   check_any_regroup, label)
+        inp_h = find.occluded_inputs(big, o_h, d_h, t_h, b_h, t_min=tm_h,
+                                     sphere_occluder=~emis_big)
+        check_only("find_any", inp_h, check_find_any, label)
+        occ_h = find.find_any(*inp_h)[:o_h.shape[0]] > 0
+        want_h = checks.occlusion_by_closest_hit(big, o_h, d_h, t_h, tm_h,
+                                                 b_h, ~emis_big)
+        if not torch.equal(occ_h, want_h):
+            raise AssertionError(
+                f"find_any [{label}]: {int((occ_h != want_h).sum())} flags "
+                "differ from those of the closest hits")
+        log(f"find_any [{label}]: flags equal to those of kernel 8's "
+            f"closest hits and the occluder spheres")
     # kernel 9 on the big scene: the bounce-0 and fuzz rays checked, the
     # bounce-1 rays checked and timed
     sub_rays = {label: inp[1] for label, inp in streamed_cases[:2]}
@@ -1019,12 +1078,16 @@ def main(argv=None) -> int:
     k1_ms = time_ms(torch, lambda: find.find_closest(*cl), 10)
     k8_ms = time_ms(torch, lambda: find.find_streamed(*st), 10)
     tri_hits = int(((p_ref >= 0) & (p_ref < TB)).sum())
+    k8_tests = checks.walk_counts(True, st, big.cluster_min,
+                                  big.cluster_max)
     log(f"65536 primary rays on {TB} triangles ({tri_hits} hit a triangle): "
         f"find_closest (kernel 1, block-culled lists of {NCB} clusters) "
-        f"{k1_ms:.4f} ms, find_streamed (kernel 8, {NS} superclusters) "
-        f"{k8_ms:.4f} ms (median of 10, CUDA events, {smi})")
+        f"{k1_ms:.4f} ms, {find_pairs(*cl)} executed tests; find_streamed "
+        f"(kernel 8, {NCB} clusters) {k8_ms:.4f} ms, {k8_tests['executed']} "
+        f"executed, {k8_tests['live']} live, {k8_tests['needed']} needed "
+        f"tests (median of 10, CUDA events, {smi})")
     records["find_streamed"]["primary_65536"] = dict(
-        find_streamed_ms=k8_ms, find_closest_ms=k1_ms)
+        find_streamed_ms=k8_ms, find_closest_ms=k1_ms, **k8_tests)
     del ref, cl, st, o_r, d_r, t_r
 
     # 7.3 the full-width frame, counted
@@ -1037,6 +1100,7 @@ def main(argv=None) -> int:
     expect = {k: 0 for k in counts}
     expect.update({"srt_find_streamed": 3 * big_chunks,
                    "srt_find_any": big_chunks,
+                   "srt_any_regroup": big_chunks,
                    "srt_hitrec": 4 * big_chunks,
                    "srt_shade": 4 * big_chunks})
     log(f"big frame launches: {counts} (expected {expect})")

@@ -5,18 +5,31 @@
 // _occluded_kernel (pallas_find.py:681), _find_streamed_kernel
 // (pallas_find.py:893) and _tri_kernel (ops/pallas_intersect.py:53). Layouts
 // are documented in sexy_raytracer_tpu_torch/ops/find.py and ops/brute.py;
-// the plain PyTorch versions there are the specification. The three
-// worklist kernels:
+// the plain PyTorch versions there are the specification.
 //
-//   * run one block of RAY_BLOCK threads per worklist row, one thread per ray;
-//     the block reads its own worklist row (the TPU prefetched it to SMEM);
-//   * stage each active cluster's [16, CK] plane/edge tile in shared memory,
-//     loaded by the whole block with float4 loads, and let every thread test
-//     its ray against the CK triangles (all threads read the same word:
-//     broadcast, no bank conflicts);
-//   * stop the worklist early, block-wide, once no remaining cluster's entry
-//     distance lies below any lane's current best t (or bound), with
-//     __syncthreads_or on the order-preserving int bits the worklist carries.
+// The resident closest hit (find_closest_kernel) runs one block of
+// RAY_BLOCK threads per worklist row, one thread per ray; the block stages
+// each active cluster's [16, CK] plane/edge tile in shared memory and stops
+// its worklist early, block-wide, once no remaining cluster's entry
+// distance lies below any lane's best t (__syncthreads_or on the
+// order-preserving int bits the worklist carries).
+//
+// The streamed closest hit and the any hit (find_streamed_kernel,
+// find_any_kernel) share the cluster walk below. What bounds them is the
+// test loop (~37 float32 operations per ray-triangle test, built without
+// FMA) times the tests the walk makes, and the shared-memory loads that
+// feed it: the first port ran 512-ray blocks over 16-cluster units with
+// one scalar load per plane/edge value and test, and tested every lane of
+// a block on every tile it visited (153 G tests for a bounce-1 chunk of
+// the big frame, whose rays need 0.18 G). The walk tests a tile for a ray
+// only where the ray's own slab test enters the cluster's box before its
+// best t, skips what no ray of a warp needs, gives each lane two rays so
+// that one 64-byte triangle read serves two tests, and keeps the tiles
+// coming through a three-stage cp.async ring with mbarriers.
+//
+// Kernel 2 takes the live rays only, regrouped into dense blocks: a pass
+// before the cull (srt_any_regroup) tests the occluder spheres and moves
+// the rays they, or a negative bound, resolve behind the live ones.
 //
 // The arithmetic keeps the JAX package's formulas and evaluation order. The
 // library is built with -fmad=false and without fast math, so nothing is
@@ -28,7 +41,6 @@
 namespace {
 
 constexpr int RAY_BLOCK = 128;
-constexpr int STREAM_BLOCK = 512;    // rays per block of the streamed find
 constexpr int BRUTE_BLOCK = 256;     // rays per block of the brute search
 constexpr int TRI_TILE = 512;        // triangles per tile of its weights
 constexpr int MAX_CK = 512;
@@ -150,145 +162,549 @@ find_closest_kernel(const int* __restrict__ lists, int list_stride,
   out_i[r] = best_t < BIG ? best_i : -1;
 }
 
-__global__ void __launch_bounds__(RAY_BLOCK)
-find_any_kernel(const int* __restrict__ lists, int list_stride,
-                const float* __restrict__ rays,
-                const float* __restrict__ tri_pack, int n_clusters, int ck,
-                const float* __restrict__ sph_pack, int n_sph_pad, int n_tris,
-                int* __restrict__ out) {
-  __shared__ __align__(16) float tile[16 * MAX_CK];
-  const int b = blockIdx.x;
-  const int r = b * RAY_BLOCK + threadIdx.x;
-  const Ray ray = load_ray(rays, r, 9);
-  float bound = rays[(size_t)r * 9 + 8];
-  const float a = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz;
+// --- the cluster walk of kernels 8 and 2 -------------------------------------
+//
+// One block per worklist row of CW * 32 * RPT rays: CW consumer warps, each
+// lane holding RPT rays in registers, and one producer warp. The row lists
+// 256-triangle clusters front to back by block-min entry distance. The
+// producer copies cluster tiles into a ring of WALK_STAGES shared-memory
+// stages with 4-byte cp.async, transposed so that triangle j's 16 floats
+// (n d | q0 c0 | q1 c1 | q2 c2) are four float4 words, and completes a
+// stage's "full" mbarrier; each consumer warp waits on it, tests, and
+// releases the stage on its "empty" mbarrier. Warps do not wait for each
+// other except through the ring.
+//
+// At every tile a ray is live when its best t (its any-hit bound) lies
+// beyond the tile's entry distance and its own slab test enters the
+// cluster's padded box before that t. Before the walk the consumer warps
+// mark the tiles that some ray of the block is live for at its first best
+// t (a bit per list entry in shared memory); the bests only fall, so no
+// other tile can ever be live, and the producer copies only marked tiles.
+// A warp with no live ray skips a tile; a warp with no ray beyond the
+// entry distance is done (the entries ascend), and once every warp is done
+// the producer stops. Inside a tile a warp skips a triangle that no live
+// ray faces (a warp vote on the plane test), and an any-hit ray that finds
+// an occluder stops being live (a predicate, not a break).
 
-  // occluder spheres (valid column): any nearest root before the bound
-  bool occ0 = false;
-  for (int s = 0; s < n_sph_pad; ++s) {
-    float tc = sphere_tc(sph_pack + 8 * s, ray, a);
-    float v = tc < bound ? tc : BIG;
-    occ0 = occ0 || (v < BIG);
+constexpr int WALK_STAGES = 3;
+constexpr int RPT = 2;                 // rays per consumer lane
+// consumer warps of the any-hit and the streamed kernels' blocks
+constexpr int ANY_WARPS = RAY_BLOCK / (32 * RPT);
+constexpr int STREAM_WARPS = 4;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+// the barrier's arrival of this thread once its cp.asyncs have landed
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+struct LaneRay {
+  float o[3], d[3], inv[3], t_min;
+};
+
+__device__ __forceinline__ LaneRay lane_ray(const float* __restrict__ p) {
+  LaneRay r;
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = p[a];
+    r.d[a] = p[3 + a];
+    r.inv[a] = 1.0f / (r.d[a] == 0.0f ? 1.0f : r.d[a]);
   }
-  if (occ0) bound = -BIG;
+  r.t_min = p[7];
+  return r;
+}
 
-  if (n_tris > 0 && n_clusters > 0) {
-    const int* row = lists + (size_t)b * list_stride;
-    const int count = row[0];
-    for (int k = 0; k < count; ++k) {
-      // resolved lanes hold -BIG, whose int bits are negative
-      if (!__syncthreads_or(__float_as_int(bound) > row[1 + n_clusters + k]))
-        break;
-      const int c = row[1 + k];
-      load_tile(tile, tri_pack, c, ck);
-      __syncthreads();
-      if (bound > -BIG) {
-        for (int j = 0; j < ck; ++j) {
-          float t;
-          if (tri_hit(tile, ck, j, ray, &t) && t < bound) {
-            bound = -BIG;
-            break;
+// The ray's slab test against a padded cluster box (lo xyz, -, hi xyz, -),
+// in the per-ray cull's formulas (ops/find.py _lane_enters): does it enter
+// the box before `best`?
+__device__ __forceinline__ bool lane_enters(const LaneRay& r,
+                                            const float* box, float best) {
+  float t_near = r.t_min, t_far = BIG;
+  for (int a = 0; a < 3; ++a) {
+    const float lo = box[a], hi = box[4 + a];
+    const float near = (lo - r.o[a]) * r.inv[a];
+    const float far = (hi - r.o[a]) * r.inv[a];
+    float lo_t = fminf(near, far), hi_t = fmaxf(near, far);
+    if (r.d[a] == 0.0f) {
+      const bool inside = (r.o[a] >= lo) && (r.o[a] <= hi);
+      lo_t = inside ? -BIG : BIG;
+      hi_t = inside ? BIG : -BIG;
+    }
+    t_near = fmaxf(t_near, lo_t);
+    t_far = fminf(t_far, hi_t);
+  }
+  return (t_far > t_near) && (t_near < best);
+}
+
+// Producer warp: tiles 0 .. count-1 of `row` into the ring, stopping where
+// every consumer warp is done (then it completes that stage's full barrier
+// with no data and leaves `stop` for the consumers to read).
+__device__ __forceinline__ bool marked(const unsigned* need, int k) {
+  return (need[k >> 5] >> (k & 31)) & 1u;
+}
+
+__device__ __forceinline__ void walk_produce(
+    const int* row, int count, const unsigned* need,
+    const float* __restrict__ tri_pack, int ck, float* stages,
+    unsigned long long* full, unsigned long long* empty,
+    volatile int* live_warps, volatile int* stop) {
+  const int lane = threadIdx.x & 31;
+  for (int k = 0, i = 0; k < count; ++k) {
+    if (!marked(need, k)) continue;
+    // the i-th copied tile goes to stage i % WALK_STAGES
+    const int s = i % WALK_STAGES;
+    const unsigned ph = (i / WALK_STAGES) & 1;
+    if (i >= WALK_STAGES) mbar_wait(&empty[s], ph ^ 1);
+    if (*live_warps == 0) {
+      if (lane == 0) *stop = i;
+      __syncwarp();
+      mbar_arrive(&full[s]);
+      return;
+    }
+    // smem word w = 32 n + lane holds tile[i][j], i = lane % 16,
+    // j = 2 n + lane / 16: element (i, j) lands at j * 16 + i
+    const float* src = tri_pack + (size_t)row[1 + k] * 16 * ck +
+                       (size_t)(lane & 15) * ck + (lane >> 4);
+    float* dst = stages + (size_t)s * 16 * ck + lane;
+    for (int n = 0; n < ck / 2; ++n) cp_async4(dst + 32 * n, src + 2 * n);
+    cp_async_arrive(&full[s]);
+    ++i;
+  }
+}
+
+// Consumer warps, before the walk: mark the list entries that some ray of
+// the warp is live for at its first best t.
+__device__ __forceinline__ void walk_mark(const int* row, int count,
+                                          int n_clusters,
+                                          const float* __restrict__ boxes,
+                                          const LaneRay* ray,
+                                          const float* best,
+                                          unsigned* need) {
+  const int lane = threadIdx.x & 31;
+  for (int k = 0; k < count; ++k) {
+    const int entry = row[1 + n_clusters + k];
+    const float4* b4 = reinterpret_cast<const float4*>(boxes) + 2 * row[1 + k];
+    const float4 b0 = __ldg(b4), b1 = __ldg(b4 + 1);
+    const float box[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    bool live = false;
+    for (int q = 0; q < RPT; ++q)
+      live |= __float_as_int(best[q]) > entry &&
+              lane_enters(ray[q], box, best[q]);
+    if (__any_sync(FULL_MASK, live) && lane == 0)
+      atomicOr(&need[k >> 5], 1u << (k & 31));
+  }
+}
+
+// Consumer warp: RPT rays a lane. best[] holds each ray's best t (ANY: its
+// bound, negative once resolved), besti[] its prim id (closest hit).
+template <bool ANY>
+__device__ __forceinline__ void walk_consume(
+    const int* row, int count, const unsigned* need, int n_clusters, int ck,
+    const float* __restrict__ boxes, const float* stages,
+    unsigned long long* full, unsigned long long* empty,
+    volatile int* live_warps, volatile int* stop, const LaneRay* ray,
+    float* best, int* besti) {
+  const int lane = threadIdx.x & 31;
+  bool done = false;
+  for (int k = 0, i = 0; k < count; ++k) {
+    if (!marked(need, k)) continue;
+    const int s = i % WALK_STAGES;
+    mbar_wait(&full[s], (i / WALK_STAGES) & 1);
+    if (*stop == i) break;
+    if (!done) {
+      const int entry = row[1 + n_clusters + k];
+      bool cand[RPT], any_cand = false;
+      for (int q = 0; q < RPT; ++q) {
+        cand[q] = __float_as_int(best[q]) > entry;
+        any_cand |= cand[q];
+      }
+      if (!__any_sync(FULL_MASK, any_cand)) {
+        done = true;
+        if (lane == 0) atomicSub((int*)live_warps, 1);
+      } else {
+        const int c = row[1 + k];
+        float box[8];
+        const float4 b0 = __ldg(reinterpret_cast<const float4*>(boxes) + 2 * c);
+        const float4 b1 =
+            __ldg(reinterpret_cast<const float4*>(boxes) + 2 * c + 1);
+        box[0] = b0.x; box[1] = b0.y; box[2] = b0.z; box[3] = b0.w;
+        box[4] = b1.x; box[5] = b1.y; box[6] = b1.z; box[7] = b1.w;
+        bool live[RPT], any_live = false;
+        for (int q = 0; q < RPT; ++q) {
+          live[q] = cand[q] && lane_enters(ray[q], box, best[q]);
+          any_live |= live[q];
+        }
+        if (__any_sync(FULL_MASK, any_live)) {
+          const float4* tile =
+              reinterpret_cast<const float4*>(stages + (size_t)s * 16 * ck);
+          const int base = c * ck;
+#pragma unroll 2
+          for (int j = 0; j < ck; ++j) {
+            const float4 nd = tile[4 * j], q0 = tile[4 * j + 1],
+                         q1 = tile[4 * j + 2], q2 = tile[4 * j + 3];
+            float ndir[RPT];
+            bool facing = false;
+            for (int q = 0; q < RPT; ++q) {
+              ndir[q] = ray[q].d[0] * nd.x + ray[q].d[1] * nd.y +
+                        ray[q].d[2] * nd.z;
+              facing |= live[q] && (ndir[q] <= -EPS);
+            }
+            if (!__any_sync(FULL_MASK, facing)) continue;
+            for (int q = 0; q < RPT; ++q) {
+              const LaneRay& r = ray[q];
+              const float a_n =
+                  r.o[0] * nd.x + r.o[1] * nd.y + r.o[2] * nd.z + nd.w;
+              const bool plane_ok = ndir[q] <= -EPS;
+              const float t = -a_n / (plane_ok ? ndir[q] : -1.0f);
+              const float px = r.o[0] + t * r.d[0];
+              const float py = r.o[1] + t * r.d[1];
+              const float pz = r.o[2] + t * r.d[2];
+              const float e0 = q0.x * px + q0.y * py + q0.z * pz - q0.w;
+              const float e1 = q1.x * px + q1.y * py + q1.z * pz - q1.w;
+              const float e2 = q2.x * px + q2.y * py + q2.z * pz - q2.w;
+              const bool valid = live[q] && plane_ok && (e0 >= 0.0f) &&
+                                 (e1 >= 0.0f) && (e2 >= 0.0f) &&
+                                 (t >= r.t_min) && (t < best[q]);
+              if (valid) {
+                if (ANY) {
+                  best[q] = -BIG;
+                  live[q] = false;
+                } else {
+                  // strict '<' in triangle order: the lowest id wins a
+                  // tie in a tile, the earlier tile across tiles
+                  best[q] = t;
+                  besti[q] = base + j;
+                }
+              }
+            }
+            if (ANY) {
+              bool still = false;
+              for (int q = 0; q < RPT; ++q) still |= live[q];
+              if (!__any_sync(FULL_MASK, still)) break;
+            }
           }
         }
       }
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    ++i;
   }
-  out[r] = bound < 0.0f ? 1 : 0;
 }
 
+// Shared memory of a walk block: the ring, then its barriers and flags.
+struct WalkShared {
+  float* stages;
+  unsigned long long* full;
+  unsigned long long* empty;
+  int* live_warps;
+  int* stop;
+  unsigned* need;  // a bit per list entry: copy this tile
+};
 
-// --- streamed closest hit (big scenes) ---------------------------------------
-//
-// The worklist row of block b lists superclusters (sc consecutive clusters).
-// The block walks their tiles j = 0 .. count*sc - 1 in order through two
-// shared-memory buffers: cp.async copies tile j+1 while tile j is tested.
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(gmem));
+__device__ __forceinline__ WalkShared walk_shared(float* smem, int ck,
+                                                  int consumers,
+                                                  int n_clusters) {
+  WalkShared w;
+  w.stages = smem;
+  w.full = reinterpret_cast<unsigned long long*>(
+      smem + (size_t)WALK_STAGES * 16 * ck);
+  w.empty = w.full + WALK_STAGES;
+  w.live_warps = reinterpret_cast<int*>(w.empty + WALK_STAGES);
+  w.stop = w.live_warps + 1;
+  w.need = reinterpret_cast<unsigned*>(w.stop + 1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WALK_STAGES; ++s) {
+      mbar_init(&w.full[s], 32);
+      mbar_init(&w.empty[s], consumers);
+    }
+    *w.live_warps = consumers;
+    *w.stop = -1;
+  }
+  for (int i = threadIdx.x; i < (n_clusters + 31) / 32; i += blockDim.x)
+    w.need[i] = 0u;
+  __syncthreads();
+  return w;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// Issue the copy of tile j of the block's worklist into buf.
-__device__ __forceinline__ void fetch_tile(float* buf,
-                                           const float* __restrict__ slabs,
-                                           const int* row, int j, int sc,
-                                           int ck) {
-  const int cid = row[1 + j / sc] * sc + j % sc;
-  const float* src = slabs + (size_t)cid * 16 * ck;
-  for (int i = threadIdx.x; i < 4 * ck; i += blockDim.x)
-    cp_async16(buf + 4 * i, src + 4 * i);
-}
-
-__global__ void __launch_bounds__(STREAM_BLOCK)
+template <int CW>
+__global__ void __launch_bounds__((CW + 1) * 32)
 find_streamed_kernel(const int* __restrict__ lists, int list_stride,
                      const float* __restrict__ rays,
-                     const float* __restrict__ slabs, int n_supers, int sc,
-                     int ck, const float* __restrict__ sph_pack,
-                     int n_sph_pad, int n_tris, float* __restrict__ out_t,
+                     const float* __restrict__ tri_pack, int n_clusters,
+                     int ck, const float* __restrict__ boxes,
+                     const float* __restrict__ sph_pack, int n_sph_pad,
+                     int n_tris, float* __restrict__ out_t,
                      int* __restrict__ out_i) {
-  extern __shared__ __align__(16) float smem[];  // two [16, ck] tiles
-  const int b = blockIdx.x;
-  const int r = b * STREAM_BLOCK + threadIdx.x;
-  const Ray ray = load_ray(rays, r, 8);
-  const float a = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz;
-
-  // spheres first (pallas_find.py:94-133): the lowest index among the
-  // nearest roots; a triangle must be strictly nearer to replace it
-  float best_t = BIG;
-  int best_s = 0;
-  for (int s = 0; s < n_sph_pad; ++s) {
-    float tc = sphere_tc(sph_pack + 8 * s, ray, a);
-    if (tc < best_t) { best_t = tc; best_s = s; }
-  }
-  int best_i = best_t < BIG ? n_tris + best_s : -1;
-
-  if (n_tris > 0 && n_supers > 0) {
-    const int* row = lists + (size_t)b * list_stride;
-    const int n_tiles = row[0] * sc;
-    if (n_tiles > 0) fetch_tile(smem, slabs, row, 0, sc, ck);
-    cp_async_commit();
-    for (int j = 0; j < n_tiles; ++j) {
-      const int k = j / sc, c = j % sc;
-      // early out at a supercluster: continue while some lane's best t
-      // lies beyond its block-min entry distance (also the barrier after
-      // which the buffer of tile j-1 may be refilled)
-      if (c == 0 &&
-          !__syncthreads_or(__float_as_int(best_t) > row[1 + n_supers + k]))
-        break;
-      float* cur = smem + (j & 1) * 16 * ck;
-      if (j + 1 < n_tiles)
-        fetch_tile(smem + ((j + 1) & 1) * 16 * ck, slabs, row, j + 1, sc, ck);
-      cp_async_commit();
-      cp_async_wait_prior();  // tile j has landed (for this thread's copies)
-      __syncthreads();        // ... and for every thread's
-      const int base = (row[1 + k] * sc + c) * ck;
-      for (int jj = 0; jj < ck; ++jj) {
-        float t;
-        if (tri_hit(cur, ck, jj, ray, &t) && t < best_t) {
-          best_t = t;
-          best_i = base + jj;
-        }
-      }
-      __syncthreads();  // every thread is done with cur before its refill
+  extern __shared__ __align__(16) float smem[];
+  const WalkShared w = walk_shared(smem, ck, CW, n_clusters);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int* row = lists + (size_t)blockIdx.x * list_stride;
+  const int count = n_tris > 0 ? row[0] : 0;
+  LaneRay ray[RPT];
+  float best[RPT];
+  int besti[RPT], rid[RPT];
+  for (int q = 0; q < RPT && warp < CW; ++q) {
+    rid[q] = blockIdx.x * (CW * 32 * RPT) + warp * 32 * RPT + q * 32 + lane;
+    const float* p = rays + (size_t)rid[q] * 8;
+    ray[q] = lane_ray(p);
+    // spheres first (pallas_find.py:94-133): the lowest index among the
+    // nearest roots; a triangle must be strictly nearer to replace it
+    Ray sr;
+    sr.ox = ray[q].o[0]; sr.oy = ray[q].o[1]; sr.oz = ray[q].o[2];
+    sr.dx = ray[q].d[0]; sr.dy = ray[q].d[1]; sr.dz = ray[q].d[2];
+    sr.tm = p[6]; sr.t_min = ray[q].t_min;
+    const float a = sr.dx * sr.dx + sr.dy * sr.dy + sr.dz * sr.dz;
+    float bt = BIG;
+    int bs = 0;
+    for (int s = 0; s < n_sph_pad; ++s) {
+      const float tc = sphere_tc(sph_pack + 8 * s, sr, a);
+      if (tc < bt) { bt = tc; bs = s; }
     }
-    cp_async_wait_all();  // no copy outlives the block
+    best[q] = bt;
+    besti[q] = bt < BIG ? n_tris + bs : -1;
   }
-  out_t[r] = best_t;
-  out_i[r] = best_t < BIG ? best_i : -1;
+  if (warp < CW) walk_mark(row, count, n_clusters, boxes, ray, best, w.need);
+  __syncthreads();
+  if (warp == CW) {
+    walk_produce(row, count, w.need, tri_pack, ck, w.stages, w.full,
+                 w.empty, w.live_warps, w.stop);
+    return;
+  }
+  walk_consume<false>(row, count, w.need, n_clusters, ck, boxes, w.stages,
+                      w.full, w.empty, w.live_warps, w.stop, ray, best,
+                      besti);
+  for (int q = 0; q < RPT; ++q) {
+    out_t[rid[q]] = best[q];
+    out_i[rid[q]] = best[q] < BIG ? besti[q] : -1;
+  }
+}
+
+// rays [Rpad, 9]: the wavefront regrouped so that live rays come first (in
+// wavefront order); column 8 is the bound, negative for a ray resolved
+// before any triangle work (dead, or occluded by a sphere). perm[r] is the
+// wavefront index of regrouped ray r, where its flag goes.
+template <int CW>
+__global__ void __launch_bounds__((CW + 1) * 32)
+find_any_kernel(const int* __restrict__ lists, int list_stride,
+                const float* __restrict__ rays, const int* __restrict__ perm,
+                const float* __restrict__ tri_pack, int n_clusters, int ck,
+                const float* __restrict__ boxes, int n_tris,
+                int* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const WalkShared w = walk_shared(smem, ck, CW, n_clusters);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int* row = lists + (size_t)blockIdx.x * list_stride;
+  // a block of resolved rays has an empty list and leaves at once
+  const int count = n_tris > 0 ? row[0] : 0;
+  LaneRay ray[RPT];
+  float bound[RPT];
+  int unused[RPT], rid[RPT];
+  for (int q = 0; q < RPT && warp < CW; ++q) {
+    rid[q] = blockIdx.x * (CW * 32 * RPT) + warp * 32 * RPT + q * 32 + lane;
+    const float* p = rays + (size_t)rid[q] * 9;
+    ray[q] = lane_ray(p);
+    bound[q] = p[8];
+  }
+  if (warp < CW) walk_mark(row, count, n_clusters, boxes, ray, bound, w.need);
+  __syncthreads();
+  if (warp == CW) {
+    walk_produce(row, count, w.need, tri_pack, ck, w.stages, w.full,
+                 w.empty, w.live_warps, w.stop);
+    return;
+  }
+  walk_consume<true>(row, count, w.need, n_clusters, ck, boxes, w.stages,
+                     w.full, w.empty, w.live_warps, w.stop, ray, bound,
+                     unused);
+  for (int q = 0; q < RPT; ++q) out[perm[rid[q]]] = bound[q] < 0.0f ? 1 : 0;
+}
+
+size_t walk_smem_bytes(int ck, int n_clusters) {
+  return (size_t)WALK_STAGES * 16 * ck * sizeof(float) +
+         2 * WALK_STAGES * sizeof(unsigned long long) + 2 * sizeof(int) +
+         (size_t)(n_clusters + 31) / 32 * sizeof(unsigned);
+}
+
+// Raise a walk kernel's dynamic shared memory limit to `bytes` on the
+// current device. The attribute is per device, so it is set at every
+// launch (a host call of about a microsecond).
+template <typename F>
+cudaError_t walk_smem_limit(F kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// --- kernel 2's regrouping pass ----------------------------------------------
+//
+// The occluder-sphere test of _occluded_kernel (pallas_find.py:689-728) and
+// a stable partition of the wavefront, live rays first, each part in
+// wavefront order: a flag-and-count pass over blocks of REGROUP_BLOCK rays,
+// a one-block scan of the block counts and a scatter, launched from one C
+// call. Written out: the padded [Rpad, 9] ray table regrouped (column 8
+// -3e38 for a resolved ray), perm (the wavefront index of each regrouped
+// ray) and the cull's t_min and t_max (3e38 and 0 for a resolved ray).
+
+constexpr int REGROUP_BLOCK = 256;
+constexpr int SCAN_THREADS = 1024;
+
+// the ray's bound stays (it is live) unless it is negative, or an occluder
+// sphere's nearest valid root lies before it
+__device__ __forceinline__ bool ray_live(const float* __restrict__ org,
+                                         const float* __restrict__ dir,
+                                         const float* __restrict__ time,
+                                         const float* __restrict__ t_min,
+                                         float bound, int i,
+                                         const float* __restrict__ sph_pack,
+                                         int n_sph_pad) {
+  if (bound < 0.0f) return false;
+  Ray ray;
+  ray.ox = org[3 * i]; ray.oy = org[3 * i + 1]; ray.oz = org[3 * i + 2];
+  ray.dx = dir[3 * i]; ray.dy = dir[3 * i + 1]; ray.dz = dir[3 * i + 2];
+  ray.tm = time[i];
+  ray.t_min = t_min[i];
+  const float a = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz;
+  for (int s = 0; s < n_sph_pad; ++s) {
+    const float tc = sphere_tc(sph_pack + 8 * s, ray, a);
+    if (tc < bound && tc < BIG) return false;
+  }
+  return true;
+}
+
+// the live rays of each thread's warp before it, and of the block's warps
+// before its warp (every thread of the block calls this)
+__device__ __forceinline__ int block_rank(bool live, int* warp_live) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned bal = __ballot_sync(FULL_MASK, live);
+  if (lane == 0) warp_live[warp] = __popc(bal);
+  __syncthreads();
+  int before = __popc(bal & ((1u << lane) - 1u));
+  for (int w = 0; w < warp; ++w) before += warp_live[w];
+  return before;
+}
+
+__global__ void __launch_bounds__(REGROUP_BLOCK)
+regroup_flag_kernel(const float* __restrict__ org,
+                    const float* __restrict__ dir,
+                    const float* __restrict__ time,
+                    const float* __restrict__ t_min,
+                    const float* __restrict__ t_bound, int n_rays,
+                    const float* __restrict__ sph_pack, int n_sph_pad,
+                    int n_pad, int* __restrict__ live,
+                    int* __restrict__ block_live) {
+  __shared__ int warp_live[REGROUP_BLOCK / 32];
+  const int i = blockIdx.x * REGROUP_BLOCK + threadIdx.x;
+  const bool is_live = i < n_rays && ray_live(org, dir, time, t_min,
+                                              t_bound[i], i, sph_pack,
+                                              n_sph_pad);
+  if (i < n_pad) live[i] = is_live ? 1 : 0;
+  const int before = block_rank(is_live, warp_live);
+  if (threadIdx.x == REGROUP_BLOCK - 1)
+    block_live[blockIdx.x] = before + (is_live ? 1 : 0);
+}
+
+// block_off[b]: the live rays of blocks before b; block_off[n_blocks]: all
+__global__ void __launch_bounds__(SCAN_THREADS)
+regroup_scan_kernel(const int* __restrict__ block_live, int n_blocks,
+                    int* __restrict__ block_off) {
+  __shared__ int sums[SCAN_THREADS];
+  const int tid = threadIdx.x;
+  const int per = (n_blocks + SCAN_THREADS - 1) / SCAN_THREADS;
+  const int b0 = min(tid * per, n_blocks);
+  const int b1 = min(b0 + per, n_blocks);
+  int s = 0;
+  for (int b = b0; b < b1; ++b) s += block_live[b];
+  sums[tid] = s;
+  __syncthreads();
+  for (int off = 1; off < SCAN_THREADS; off <<= 1) {
+    const int v = tid >= off ? sums[tid - off] : 0;
+    __syncthreads();
+    sums[tid] += v;
+    __syncthreads();
+  }
+  int run = tid > 0 ? sums[tid - 1] : 0;
+  for (int b = b0; b < b1; ++b) {
+    block_off[b] = run;
+    run += block_live[b];
+  }
+  if (tid == SCAN_THREADS - 1) block_off[n_blocks] = sums[tid];
+}
+
+__global__ void __launch_bounds__(REGROUP_BLOCK)
+regroup_scatter_kernel(const float* __restrict__ org,
+                       const float* __restrict__ dir,
+                       const float* __restrict__ time,
+                       const float* __restrict__ t_min,
+                       const float* __restrict__ t_bound, int n_rays,
+                       int n_pad, const int* __restrict__ live,
+                       const int* __restrict__ block_off, int n_blocks,
+                       float* __restrict__ rays_out, int* __restrict__ perm,
+                       float* __restrict__ cull_t_min,
+                       float* __restrict__ cull_t_max) {
+  __shared__ int warp_live[REGROUP_BLOCK / 32];
+  const int i = blockIdx.x * REGROUP_BLOCK + threadIdx.x;
+  const bool is_live = i < n_pad && live[i] != 0;
+  const int before = block_off[blockIdx.x] + block_rank(is_live, warp_live);
+  if (i >= n_pad) return;
+  // live rays in wavefront order, then the resolved ones in theirs
+  const int dst = is_live ? before : block_off[n_blocks] + (i - before);
+  // a pad ray (past n_rays) is dead: t_min 3e38, bound -3e38
+  float v[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, BIG, -BIG};
+  if (i < n_rays) {
+    for (int a = 0; a < 3; ++a) {
+      v[a] = org[3 * i + a];
+      v[3 + a] = dir[3 * i + a];
+    }
+    v[6] = time[i];
+    v[7] = t_min[i];
+    v[8] = is_live ? t_bound[i] : -BIG;
+  }
+  float* out = rays_out + (size_t)dst * 9;
+  for (int c = 0; c < 9; ++c) out[c] = v[c];
+  perm[dst] = i;
+  cull_t_min[dst] = is_live ? v[7] : BIG;
+  cull_t_max[dst] = is_live ? v[8] : 0.0f;
 }
 
 // --- brute-force closest triangle (pallas_intersect.py:53-95) ----------------
@@ -371,39 +787,69 @@ int srt_find_closest(const int* lists, int list_stride, const float* rays,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel 2 takes rows of 128 rays (two consumer warps), kernel 8 rows of
+// 256 (four).
 int srt_find_any(const int* lists, int list_stride, const float* rays,
-                 const float* tri_pack, int n_clusters, int ck,
-                 const float* sph_pack, int n_sph_pad, int n_tris,
-                 int ray_block, int n_blocks, int* out, void* stream) {
+                 const int* perm, const float* tri_pack, int n_clusters,
+                 int ck, const float* boxes, int n_tris, int ray_block,
+                 int n_blocks, int* out, void* stream) {
   if (ray_block != RAY_BLOCK || ck > MAX_CK || ck % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = walk_smem_bytes(ck, n_clusters);
+  cudaError_t err = walk_smem_limit(find_any_kernel<ANY_WARPS>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (n_blocks > 0) {
-    find_any_kernel<<<n_blocks, RAY_BLOCK, 0, (cudaStream_t)stream>>>(
-        lists, list_stride, rays, tri_pack, n_clusters, ck, sph_pack,
-        n_sph_pad, n_tris, out);
+    find_any_kernel<ANY_WARPS>
+        <<<n_blocks, (ANY_WARPS + 1) * 32, smem, (cudaStream_t)stream>>>(
+            lists, list_stride, rays, perm, tri_pack, n_clusters, ck, boxes,
+            n_tris, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 2's regrouping pass; scratch holds n_pad + 2 ceil(n_pad / 256) + 1
+// ints.
+int srt_any_regroup(const float* org, const float* dir, const float* time,
+                    const float* t_min, const float* t_bound, int n_rays,
+                    const float* sph_pack, int n_sph_pad, int n_pad,
+                    int* scratch, float* rays_out, int* perm,
+                    float* cull_t_min, float* cull_t_max, void* stream) {
+  if (n_rays < 0 || n_pad < n_rays || n_sph_pad < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_blocks = (n_pad + REGROUP_BLOCK - 1) / REGROUP_BLOCK;
+  int* live = scratch;
+  int* block_live = scratch + n_pad;
+  int* block_off = block_live + n_blocks;  // n_blocks + 1
+  if (n_blocks > 0) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    regroup_flag_kernel<<<n_blocks, REGROUP_BLOCK, 0, s>>>(
+        org, dir, time, t_min, t_bound, n_rays, sph_pack, n_sph_pad, n_pad,
+        live, block_live);
+    regroup_scan_kernel<<<1, SCAN_THREADS, 0, s>>>(block_live, n_blocks,
+                                                   block_off);
+    regroup_scatter_kernel<<<n_blocks, REGROUP_BLOCK, 0, s>>>(
+        org, dir, time, t_min, t_bound, n_rays, n_pad, live, block_off,
+        n_blocks, rays_out, perm, cull_t_min, cull_t_max);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int srt_find_streamed(const int* lists, int list_stride, const float* rays,
-                      const float* slabs, int n_supers, int sc, int ck,
-                      const float* sph_pack, int n_sph_pad, int n_tris,
-                      int ray_block, int n_blocks, float* out_t, int* out_i,
-                      void* stream) {
-  if (ray_block != STREAM_BLOCK || ck > MAX_CK || ck % 4 != 0 || sc < 1)
+                      const float* tri_pack, int n_clusters, int ck,
+                      const float* boxes, const float* sph_pack,
+                      int n_sph_pad, int n_tris, int ray_block, int n_blocks,
+                      float* out_t, int* out_i, void* stream) {
+  if (ray_block != STREAM_WARPS * 32 * RPT || ck > MAX_CK || ck % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 2 * 16 * ck * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        find_streamed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t smem = walk_smem_bytes(ck, n_clusters);
+  cudaError_t err =
+      walk_smem_limit(find_streamed_kernel<STREAM_WARPS>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (n_blocks > 0) {
-    find_streamed_kernel<<<n_blocks, STREAM_BLOCK, smem,
-                           (cudaStream_t)stream>>>(
-        lists, list_stride, rays, slabs, n_supers, sc, ck, sph_pack,
-        n_sph_pad, n_tris, out_t, out_i);
+    find_streamed_kernel<STREAM_WARPS>
+        <<<n_blocks, (STREAM_WARPS + 1) * 32, smem, (cudaStream_t)stream>>>(
+            lists, list_stride, rays, tri_pack, n_clusters, ck, boxes,
+            sph_pack, n_sph_pad, n_tris, out_t, out_i);
   }
   return static_cast<int>(cudaGetLastError());
 }

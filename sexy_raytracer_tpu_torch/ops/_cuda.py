@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels of ``csrc/*.cu``.
 
 All kernels live in one shared library with a plain C interface, compiled
-with ``nvcc`` for Hopper (``sm_90a``) at first use and loaded with ctypes.
+with ``nvcc`` for Hopper (``sm_90a``) at first use, one ``nvcc`` per source
+file, all started together, then linked, and loaded with ctypes.
 The library is keyed by a hash of the sources and flags, and lives under
 ``build/sexy_raytracer_tpu_torch/`` at the repository root, so a checkout
 builds what its own sources say. Nothing here runs at import.
@@ -36,7 +37,7 @@ _BUILD = _PKG.parent / "build" / "sexy_raytracer_tpu_torch"
 SOURCES = ("find.cu", "fused.cu", "histogram.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -78,18 +79,32 @@ def build() -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas=-v",
-           "-o", tmp, *(str(_CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as obj_dir:
+        objs = [os.path.join(obj_dir, s + ".o") for s in SOURCES]
+        jobs = [
+            ([_nvcc(), *NVCC_FLAGS, "-Xptxas=-v", "-c", "-o", obj,
+              str(_CSRC / name)])
+            for name, obj in zip(SOURCES, objs)
+        ]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in jobs]
+        results = []
+        for cmd, p in zip(jobs, procs):
+            stdout, stderr = p.communicate()
+            results.append((cmd, p.returncode, stdout, stderr))
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        if all(p.returncode == 0 for p in procs):
+            lp = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, lp.returncode, lp.stdout, lp.stderr))
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    log = proc.stdout + proc.stderr
+    for cmd, rc, stdout, stderr in results:
+        if rc != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{stdout}\n{stderr}")
+    log = "".join(stdout + stderr for _, _, stdout, stderr in results)
     log_path.write_text(log)
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     build_info.update(path=str(out), seconds=seconds, cached=False, log=log)

@@ -1,7 +1,8 @@
 """Cluster-culled closest-hit and any-hit search (counterpart of
 ``sexy_raytracer_tpu/ops/pallas_find.py:235-1109``).
 
-Three kernels, each with a plain PyTorch version beside it:
+Three kernels and kernel 2's regrouping pass, each with a plain PyTorch
+version beside it:
 
 * ``find_closest`` replaces the TPU's ``_find_kernel`` (pallas_find.py:170,
   via ``find_hit_clustered`` :521): the closest hit per ray over its ray
@@ -9,14 +10,22 @@ Three kernels, each with a plain PyTorch version beside it:
   out, plus every sphere.
 * ``find_any`` replaces ``_occluded_kernel`` (pallas_find.py:681, via
   ``find_occluded`` :765): is there a non-emissive primitive with t in
-  [t_min, t_bound)? Lanes die on their first occluder.
+  [t_min, t_bound)? ``any_regroup`` (from the same TPU kernel's sphere
+  test, pallas_find.py:689) resolves the rays that an occluder sphere or
+  a negative bound decides and moves them behind the live ones before the
+  cull; kernel 2 walks the live rays in dense blocks, and each dies on its
+  first occluder.
 * ``find_streamed`` replaces ``_find_streamed_kernel`` (pallas_find.py:893,
   via ``find_hit_streamed`` :980): the closest hit for big scenes, over
-  worklists of superclusters (``SUPER_CLUSTERS`` consecutive clusters)
-  from the per-block interval cull ``cluster_lists_block``.
+  worklists of clusters from the per-block interval cull
+  ``cluster_lists_block``.
 
-The wrappers launch the CUDA kernel (csrc/find.cu) on CUDA tensors and
-run the plain version on CPU tensors; there is no fallback between them.
+Kernels 8 and 2 share a walk (``_lane_walk``): front to back over a
+block's clusters with the early out at every tile, each ray testing only
+the tiles whose padded box its own slab test enters before its best t (or
+bound). The wrappers launch the CUDA kernel (csrc/find.cu) on CUDA tensors
+and run the plain version on CPU tensors; there is no fallback between
+them.
 
 Data layout (the TPU kernel's, so that inputs compare one to one):
 
@@ -27,9 +36,14 @@ Data layout (the TPU kernel's, so that inputs compare one to one):
   valid — the center at time t is ``base + delta * t``;
 * rays ``[Rpad, 8]`` (``[Rpad, 9]`` with t_bound for the any-hit query):
   ox oy oz dx dy dz time t_min; pad lanes have t_min = 3e38 (dead);
-* worklists ``[NB, 1 + 2 NC]`` int32, one row per block of RAY_BLOCK rays:
-  the count of active clusters, their ids front to back, and their
-  block-min entry distances as order-preserving int32 bits.
+* worklists ``[NB, 1 + 2 NC]`` int32, one row per block of rays: the
+  count of active clusters, their ids front to back, and their
+  block-min entry distances as order-preserving int32 bits;
+* cluster boxes ``[NC, 8]`` (kernels 8 and 2): lo xyz, 0, hi xyz, 0,
+  padded (``_lane_boxes``).
+
+The triangle pack and the padded boxes are derived from the scene once
+(``_derived``) and rebuilt only when their source tensors change.
 
 The kernels keep the JAX package's formulas and evaluation order, and
 the CUDA build disables FMA contraction, so a kernel and its plain
@@ -37,6 +51,8 @@ version agree bit for bit on the same inputs.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -48,7 +64,6 @@ from sexy_raytracer_tpu_torch.ops import _cuda
 from sexy_raytracer_tpu_torch.ops.intersect import (
     _per_ray_t_min,
     _sph_candidates,
-    sphere_roots,
 )
 from sexy_raytracer_tpu_torch.utils.mathx import EPSILON
 
@@ -63,12 +78,13 @@ PER_RAY_CULL_MAX_CLUSTERS = 512
 # Elements of one [blocks, RAY_BLOCK, CK] intermediate of the plain find;
 # bounds its memory at large wavefronts.
 _PLAIN_CHUNK_ELEMS = 1 << 24
-# The streamed big-scene find (pallas_find.py:75-76,1011): clusters per
-# supercluster, doubled while there would be more than MAX_SUPERS of them,
-# and rays per block (max(RAY_BLOCK, 512) in the JAX package).
-SUPER_CLUSTERS = 16
-MAX_SUPERS = 1024
-STREAM_RAY_BLOCK = 512
+# Rays per block of the streamed find: four consumer warps of 64 rays
+# (the any-hit kernel takes RAY_BLOCK: two).
+STREAM_RAY_BLOCK = 256
+# Memory budget of the interval cull: (block, box) pairs per pass. Each of
+# its [pairs, 3] float32 intermediates takes 96 MiB at the budget; past it
+# the cull runs over groups of blocks, which gives the same rows.
+CULL_PAIRS_MAX = 1 << 23
 
 FIND_CLOSEST = _cuda.Kernel(
     "srt_find_closest", "pippiipiiiipp",
@@ -76,12 +92,20 @@ FIND_CLOSEST = _cuda.Kernel(
     replaces="sexy_raytracer_tpu/ops/pallas_find.py:170 (_find_kernel)",
 )
 FIND_ANY = _cuda.Kernel(
-    "srt_find_any", "pippiipiiiip",
+    "srt_find_any", "pipppiipiiip",
     source="sexy_raytracer_tpu_torch/csrc/find.cu",
     replaces="sexy_raytracer_tpu/ops/pallas_find.py:681 (_occluded_kernel)",
 )
+ANY_REGROUP = _cuda.Kernel(
+    "srt_any_regroup", "pppppipiippppp",
+    source="sexy_raytracer_tpu_torch/csrc/find.cu",
+    replaces="sexy_raytracer_tpu/ops/pallas_find.py:689 (_occluded_kernel's "
+             "occluder spheres)",
+)
+# rays per block of the regrouping pass's flag and scatter kernels
+_REGROUP_BLOCK = 256
 FIND_STREAMED = _cuda.Kernel(
-    "srt_find_streamed", "pippiiipiiiipp",
+    "srt_find_streamed", "pippiippiiiipp",
     source="sexy_raytracer_tpu_torch/csrc/find.cu",
     replaces="sexy_raytracer_tpu/ops/pallas_find.py:893 "
              "(_find_streamed_kernel)",
@@ -92,20 +116,44 @@ FIND_STREAMED = _cuda.Kernel(
 # packs and worklists (plain torch, shared by both kernels)
 # ---------------------------------------------------------------------------
 
+def _derived(fn):
+    """``fn(*tensors)``, kept for the last tensors it was called with: a
+    second call with the same tensor objects, none of them changed in
+    place since, returns the kept result (which callers only read)."""
+    last = {}
+
+    def call(*tensors):
+        key = [(weakref.ref(t), t._version) for t in tensors]
+        if len(key) == len(last.get("key", ())) and all(
+                r() is t and v == t._version
+                for (r, v), t in zip(last["key"], tensors)):
+            return last["out"]
+        out = fn(*tensors)
+        last.update(key=key, out=out)
+        return out
+
+    return call
+
+
 def _pack_triangles(scene):
-    """[NC, 16, CK] plane/edge pack: rows n(3), d, q(9 interleaved), c(3)."""
-    T = scene.tri_v0.shape[0]
+    """[NC, 16, CK] plane/edge pack: rows n(3), d, q(9 interleaved), c(3);
+    and NC."""
+    return _triangle_pack(scene.tri_n, scene.tri_d, scene.tri_q, scene.tri_c)
+
+
+@_derived
+def _triangle_pack(tri_n, tri_d, q, c):
+    T = tri_n.shape[0]
     ck = CLUSTER_SIZE
     nc = -(-T // ck)
-    q, c = scene.tri_q, scene.tri_c
     rows = [
-        scene.tri_n[:, 0], scene.tri_n[:, 1], scene.tri_n[:, 2], scene.tri_d,
+        tri_n[:, 0], tri_n[:, 1], tri_n[:, 2], tri_d,
         q[:, 0, 0], q[:, 0, 1], q[:, 0, 2], c[:, 0],
         q[:, 1, 0], q[:, 1, 1], q[:, 1, 2], c[:, 1],
         q[:, 2, 0], q[:, 2, 1], q[:, 2, 2], c[:, 2],
     ]
     pack = torch.zeros((16, nc * ck), dtype=torch.float32,
-                       device=scene.tri_v0.device)
+                       device=tri_n.device)
     pack[:, :T] = torch.stack(rows, dim=0)
     return pack.reshape(16, nc, ck).transpose(0, 1).contiguous(), nc
 
@@ -215,7 +263,7 @@ def cluster_lists_block(org, dir, t_min, cmin, cmax, t_max=None,
                         ray_block=RAY_BLOCK):
     """Per-block *interval* cull (pallas_find.py:389-514): O(NB x NC), no
     per-ray blowup; the lists of scenes past ``PER_RAY_CULL_MAX_CLUSTERS``
-    clusters and of the streamed find's superclusters.
+    clusters, of the streamed find and of the big scenes' occlusion.
 
     Each ray block is summarized by its origin AABB, per-component
     direction range and t bounds; the slab test then runs in interval
@@ -225,8 +273,22 @@ def cluster_lists_block(org, dir, t_min, cmin, cmax, t_max=None,
     formulas and their order are JAX's: the ``d -> 0+`` cases, ``eps``,
     the ``zero_ok`` straddle and ``dead_block`` keep the cull
     conservative, and ``torch.minimum``/``maximum`` propagate NaN as
-    ``jnp`` does.
+    ``jnp`` does. Past ``CULL_PAIRS_MAX`` (block, box) pairs the blocks are
+    culled in groups: a block's row depends on its own rays only.
     """
+    step = max(1, CULL_PAIRS_MAX // max(1, cmin.shape[0])) * ray_block
+    if org.shape[0] <= step:
+        return _interval_cull(org, dir, t_min, cmin, cmax, t_max, ray_block)
+    return torch.cat([
+        _interval_cull(org[r0:r0 + step], dir[r0:r0 + step],
+                       t_min[r0:r0 + step], cmin, cmax,
+                       None if t_max is None else t_max[r0:r0 + step],
+                       ray_block)
+        for r0 in range(0, org.shape[0], step)])
+
+
+def _interval_cull(org, dir, t_min, cmin, cmax, t_max, ray_block):
+    """``cluster_lists_block`` on one group of blocks."""
     R = org.shape[0]
     nb = -(-R // ray_block)
     pad_r = nb * ray_block - R
@@ -401,7 +463,7 @@ def find_closest(lists, rays, tri_pack, sph_pack, n_tris):
     """
     if not rays.is_cuda:
         return find_closest_plain(lists, rays, tri_pack, sph_pack, n_tris)
-    nb = _check_find_args(lists, rays, tri_pack, sph_pack, 8)
+    nb = _check_find_args(lists, rays, tri_pack, sph_pack)
     Rpad = rays.shape[0]
     out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
     out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
@@ -415,8 +477,10 @@ def find_closest(lists, rays, tri_pack, sph_pack, n_tris):
     return out_t, out_i
 
 
-def _check_find_args(lists, rays, tri_pack, sph_pack, n_cols):
-    """Validate what the find kernels read; returns the block count."""
+def _check_find_args(lists, rays, tri_pack, sph_pack):
+    """Validate what ``find_closest``'s kernel reads; returns the block
+    count."""
+    n_cols = 8
     dev = rays.device
     for name, x, dtype in (("lists", lists, torch.int32),
                            ("rays", rays, torch.float32),
@@ -506,24 +570,16 @@ def find_closest_plain(lists, rays, tri_pack, sph_pack, n_tris):
     """Plain PyTorch version of ``find_closest``: the same worklists, tile
     order, early out and tie rule (lowest id within a tile, the earlier
     tile across tiles), vectorized over ray blocks."""
-    return _closest_walk(lists, rays, tri_pack, sph_pack, n_tris,
-                         RAY_BLOCK, 1)
-
-
-def _closest_walk(lists, rays, tiles, sph_pack, n_tris, ray_block, group):
-    """The closest-hit walk of both find kernels: spheres first, then each
-    block's list entries front to back, each entry standing for ``group``
-    consecutive tiles of ``tiles`` [n_entries * group, 16, CK]; a block
-    stops at the first entry whose entry bits reach its worst best-t."""
+    ray_block = RAY_BLOCK
     Rpad = rays.shape[0]
     nb = Rpad // ray_block
-    ck = tiles.shape[2]
-    n_entries = tiles.shape[0] // group
+    ck = tri_pack.shape[2]
+    n_entries = tri_pack.shape[0]
     out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
     out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
     big_id = torch.tensor(2 ** 30, dtype=torch.int32, device=rays.device)
     lane = torch.arange(ck, dtype=torch.int32, device=rays.device)
-    for b0, b1 in _block_chunks(nb, tiles, ray_block):
+    for b0, b1 in _block_chunks(nb, tri_pack, ray_block):
         rb = rays[b0 * ray_block:b1 * ray_block]
         tc = _sphere_tc(rb, sph_pack)
         sph_t = tc.amin(dim=1)
@@ -544,18 +600,17 @@ def _closest_walk(lists, rays, tiles, sph_pack, n_tris, ray_block, group):
                 blk = active.nonzero().squeeze(1)
                 if blk.numel() == 0:
                     break
-                for g in range(group):
-                    c = lst[blk, 1 + k].long() * group + g
-                    t, valid = _tile_t(tiles[c], rays_b[blk])
-                    tcl = torch.where(valid, t, _BIG)
-                    tile_t = tcl.amin(dim=2)
-                    win = torch.where(
-                        tcl <= tile_t[..., None],
-                        (c[:, None] * ck).to(torch.int32)[..., None] + lane,
-                        big_id).amin(dim=2)
-                    better = tile_t < bt[blk]
-                    bt[blk] = torch.where(better, tile_t, bt[blk])
-                    bi[blk] = torch.where(better, win, bi[blk])
+                c = lst[blk, 1 + k].long()
+                t, valid = _tile_t(tri_pack[c], rays_b[blk])
+                tcl = torch.where(valid, t, _BIG)
+                tile_t = tcl.amin(dim=2)
+                win = torch.where(
+                    tcl <= tile_t[..., None],
+                    (c[:, None] * ck).to(torch.int32)[..., None] + lane,
+                    big_id).amin(dim=2)
+                better = tile_t < bt[blk]
+                bt[blk] = torch.where(better, tile_t, bt[blk])
+                bi[blk] = torch.where(better, win, bi[blk])
         out_t[b0 * ray_block:b1 * ray_block] = bt.reshape(-1)
         out_i[b0 * ray_block:b1 * ray_block] = torch.where(
             bt < _BIG, bi, -1).reshape(-1)
@@ -563,19 +618,148 @@ def _closest_walk(lists, rays, tiles, sph_pack, n_tris, ray_block, group):
 
 
 # ---------------------------------------------------------------------------
-# closest hit, streamed superclusters (big scenes)
+# the cluster walk of kernels 8 and 2: per-lane boxes, the plain walk
+# ---------------------------------------------------------------------------
+
+def _cluster_boxes(scene):
+    """The scene's cluster AABBs [NC, 3] x 2 (derived where the scene has
+    no cluster metadata)."""
+    nc = -(-scene.tri_v0.shape[0] // CLUSTER_SIZE)
+    if scene.cluster_min.shape[0] == nc:
+        return scene.cluster_min, scene.cluster_max
+    return cluster_bounds_device(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+
+
+@_derived
+def _lane_boxes(cmin, cmax):
+    """[NC, 8] float32 rows (lo xyz, 0, hi xyz, 0): the cluster boxes that
+    the walk's per-ray slab test reads, padded on every side by 1e-5 of
+    the scene's extent (1 + its largest coordinate), far above the float32
+    rounding of that test and of the triangle test, so a ray the test
+    turns away has no hit in the box. Kept for the box tensors it was last
+    called with (``_derived``)."""
+    real = (cmin <= cmax).all(dim=1, keepdim=True)
+    ext = torch.where(real, torch.maximum(cmin.abs(), cmax.abs()), 0.0)
+    m = 1e-5 * (1.0 + ext.amax()) if cmin.numel() else 0.0
+    zero = torch.zeros_like(cmin[:, :1])
+    return torch.cat([cmin - m, zero, cmax + m, zero], dim=1).contiguous()
+
+
+def _lane_enters(rays_b, boxes, best):
+    """The walk's per-ray slab test (csrc/find.cu ``lane_enters``): does
+    each ray of ``rays_b`` [n, RB, 8+] enter its block's box ``boxes``
+    [n, 8] before ``best`` [n, RB]? The per-ray cull's formulas; min and
+    max as C's ``fminf``/``fmaxf``."""
+    t_near = rays_b[..., 7]
+    t_far = torch.full_like(t_near, _BIG)
+    for a in range(3):
+        o, d = rays_b[..., a], rays_b[..., 3 + a]
+        lo, hi = boxes[:, None, a], boxes[:, None, 4 + a]
+        zero = d == 0.0
+        inv = 1.0 / torch.where(zero, 1.0, d)
+        near = (lo - o) * inv
+        far = (hi - o) * inv
+        inside = (o >= lo) & (o <= hi)
+        lo_t = torch.where(zero, torch.where(inside, -_BIG, _BIG),
+                           torch.fmin(near, far))
+        hi_t = torch.where(zero, torch.where(inside, _BIG, -_BIG),
+                           torch.fmax(near, far))
+        t_near = torch.fmax(t_near, lo_t)
+        t_far = torch.fmin(t_far, hi_t)
+    return (t_far > t_near) & (t_near < best)
+
+
+def _lane_walk(lists, rays, pack, boxes, state, index=None):
+    """The walk of kernels 8 (``index`` given: closest hit) and 2 (any
+    hit) on ``state`` [Rpad] (best t, or bound), vectorized over blocks of
+    ``Rpad // NB`` rays: each block's clusters front to back; a ray tests
+    a tile when its state lies beyond the tile's entry distance and its
+    slab test enters the padded box before it; a block stops where no ray
+    lies beyond the entry. Closest hit: strict '<', the lowest id within
+    a tile, the earlier tile across tiles. Updates ``state`` (and
+    ``index``) in place."""
+    Rpad = rays.shape[0]
+    nb = lists.shape[0]
+    if nb == 0 or pack.shape[0] == 0:
+        return
+    RB = Rpad // nb
+    nc = (lists.shape[1] - 1) // 2
+    ck = pack.shape[2]
+    big_id = torch.tensor(2 ** 30, dtype=torch.int32, device=rays.device)
+    lane = torch.arange(ck, dtype=torch.int32, device=rays.device)
+    for b0, b1 in _block_chunks(nb, pack, RB):
+        st = state[b0 * RB:b1 * RB].view(b1 - b0, RB)
+        ix = None if index is None else index[b0 * RB:b1 * RB].view(
+            b1 - b0, RB)
+        rays_b = rays[b0 * RB:b1 * RB].reshape(b1 - b0, RB, -1)
+        lst = lists[b0:b1]
+        active = torch.ones(b1 - b0, dtype=torch.bool, device=rays.device)
+        for k in range(nc):
+            active &= (k < lst[:, 0]) \
+                & (lst[:, 1 + nc + k] < _worst_bits(st))
+            blk = active.nonzero().squeeze(1)
+            if blk.numel() == 0:
+                break
+            c = lst[blk, 1 + k].long()
+            s = st[blk]
+            live = (s.view(torch.int32) > lst[blk, 1 + nc + k][:, None]) \
+                & _lane_enters(rays_b[blk], boxes[c], s)
+            t, valid = _tile_t(pack[c], rays_b[blk])
+            if index is None:
+                hit = (valid & (t < s[..., None])).any(dim=2)
+                st[blk] = torch.where(live & hit, -_BIG, s)
+                continue
+            tcl = torch.where(valid, t, _BIG)
+            tile_t = tcl.amin(dim=2)
+            win = torch.where(
+                tcl <= tile_t[..., None],
+                (c[:, None] * ck).to(torch.int32)[..., None] + lane,
+                big_id).amin(dim=2)
+            better = live & (tile_t < s)
+            st[blk] = torch.where(better, tile_t, s)
+            ix[blk] = torch.where(better, win, ix[blk])
+
+
+def _check_walk_args(lists, rays, pack, boxes, n_cols, ray_block):
+    """Validate what kernels 8 and 2 read; returns the block count."""
+    dev = rays.device
+    for name, x, dtype in (("lists", lists, torch.int32),
+                           ("rays", rays, torch.float32),
+                           ("pack", pack, torch.float32),
+                           ("boxes", boxes, torch.float32)):
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(
+                f"{name}: need a contiguous {dtype} tensor on {dev}, got "
+                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
+            )
+    nb = lists.shape[0]
+    if rays.ndim != 2 or rays.shape != (nb * ray_block, n_cols):
+        raise ValueError(f"rays must be [{nb} * {ray_block}, {n_cols}] for "
+                         f"{nb} list rows, got {tuple(rays.shape)}")
+    nc = pack.shape[0]
+    if pack.ndim != 3 or pack.shape[1] != 16 or pack.shape[2] > 512 \
+            or pack.shape[2] % 4:
+        raise ValueError(f"pack must be [NC, 16, CK <= 512, a multiple of "
+                         f"4], got {tuple(pack.shape)}")
+    if lists.shape[1] != 1 + 2 * nc or boxes.shape != (nc, 8):
+        raise ValueError(f"lists {tuple(lists.shape)} and boxes "
+                         f"{tuple(boxes.shape)} do not fit {nc} clusters")
+    return nb
+
+
+# ---------------------------------------------------------------------------
+# closest hit, streamed clusters (big scenes)
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
 def find_hit_streamed(scene, org, dir, time, t_min=None):
-    """Closest hit for scenes past the resident limit (pallas_find.py:
-    980-1109). Returns (prim [R] int32, t [R]); stop-gradient.
+    """Closest hit for scenes past the resident limit (the function of
+    pallas_find.py:980-1109). Returns (prim [R] int32, t [R]);
+    stop-gradient.
 
-    The triangle pack is grouped into supercluster slabs
-    ``[NS, sc * 16, CK]`` of ``sc`` consecutive spatial clusters; the
-    interval cull (``cluster_lists_block``) over supercluster boxes gives
-    each block of ``STREAM_RAY_BLOCK`` rays its worklist, bounded by the
-    rays' closest sphere hits, and the kernel walks only the survivors.
+    The interval cull (``cluster_lists_block``) over the cluster boxes
+    gives each block of ``STREAM_RAY_BLOCK`` rays its worklist, bounded by
+    the rays' closest sphere hits, and the kernel walks the survivors.
     """
     R = org.shape[0]
     t, prim = find_streamed(*streamed_inputs(scene, org, dir, time, t_min))
@@ -586,126 +770,89 @@ def find_hit_streamed(scene, org, dir, time, t_min=None):
 @torch.no_grad()
 def streamed_inputs(scene, org, dir, time, t_min=None):
     """The arguments of ``find_streamed`` for a wavefront: (lists, rays,
-    slabs, sph_pack, n_tris, sc).
+    pack, boxes, sph_pack, n_tris).
 
-    The TPU grows its ray block when the worklists would overflow its
-    scalar memory (pallas_find.py:1013-1014); the card reads them from
-    device memory, so the block stays at 512 (it would grow only past
-    ~895k rays per call at NS = 74, and a render chunk holds 524,288).
+    The JAX package culls superclusters of 16 clusters for 512-ray blocks,
+    sized for the TPU's DMA and its scalar-memory worklists; the card
+    reads worklists from device memory, so the lists hold single clusters
+    for blocks of ``STREAM_RAY_BLOCK`` rays (on the H100, 256-ray blocks
+    beat 128-ray ones at bounces 1 and 2 of the big frame and matched them
+    at bounce 0, ``PERF.md``).
     """
     t_min = _per_ray_t_min(t_min, org)
     rays, _ = _ray_table(
         [org[:, 0], org[:, 1], org[:, 2], dir[:, 0], dir[:, 1], dir[:, 2],
          time, t_min], {7: _BIG}, STREAM_RAY_BLOCK)
-
-    tri_pack, nc = _pack_triangles(scene)               # [NC, 16, CK]
-    sc = SUPER_CLUSTERS
-    while -(-nc // sc) > MAX_SUPERS:
-        sc *= 2
-    ns = -(-nc // sc)
-    pad_c = ns * sc - nc
-    slabs = torch.nn.functional.pad(tri_pack, (0, 0, 0, 0, 0, pad_c)) \
-        .reshape(ns, sc * 16, CLUSTER_SIZE)
-
-    # supercluster boxes: min/max over consecutive cluster groups, padded
-    # clusters empty (+-3e38)
-    if scene.cluster_min.shape[0] == nc:
-        cmin, cmax = scene.cluster_min, scene.cluster_max
-    else:  # a scene without cluster metadata: derive it here
-        cmin, cmax = cluster_bounds_device(scene.tri_v0, scene.tri_v1,
-                                           scene.tri_v2)
-    cmin = torch.nn.functional.pad(cmin, (0, 0, 0, pad_c), value=_BIG)
-    cmax = torch.nn.functional.pad(cmax, (0, 0, 0, pad_c), value=-_BIG)
-    smin = cmin.reshape(ns, sc, 3).amin(dim=1)
-    smax = cmax.reshape(ns, sc, 3).amax(dim=1)
-
+    pack, _ = _pack_triangles(scene)                    # [NC, 16, CK]
+    cmin, cmax = _cluster_boxes(scene)
     sph_bound = None
     if scene.sph_c0.shape[0] > 0:
         sph_bound, _ = _sph_candidates(scene, org, dir, time, t_min)
-    lists = cluster_lists_block(org, dir, t_min, smin, smax, t_max=sph_bound,
+    lists = cluster_lists_block(org, dir, t_min, cmin, cmax, t_max=sph_bound,
                                 ray_block=STREAM_RAY_BLOCK)
-    return lists, rays, slabs, _pack_spheres(scene), scene.tri_v0.shape[0], \
-        sc
+    return lists, rays, pack, _lane_boxes(cmin, cmax), _pack_spheres(scene), \
+        scene.tri_v0.shape[0]
 
 
-def find_streamed(lists, rays, slabs, sph_pack, n_tris, sc):
-    """Closest hit per ray over supercluster worklists -> (t [Rpad] f32,
-    prim [Rpad] int32; -1 = miss).
+def find_streamed(lists, rays, pack, boxes, sph_pack, n_tris):
+    """Closest hit per ray over cluster worklists -> (t [Rpad] f32, prim
+    [Rpad] int32; -1 = miss).
 
     Launches the CUDA kernel on CUDA tensors (csrc/find.cu), runs
     ``find_streamed_plain`` on CPU tensors.
 
     Kernel note. Replaces ``_find_streamed_kernel`` (pallas_find.py:893),
-    which double-buffers 128 KB supercluster slabs from HBM into VMEM by
-    DMA. One CUDA block of 512 threads per worklist row, one thread per
-    ray. For each active supercluster, in list order, the block walks its
-    ``sc`` [16, CK] tiles (16 KB each) through two shared-memory buffers:
-    ``cp.async`` copies tile j+1 while every thread tests its ray against
-    tile j, the Hopper counterpart of the TPU's two-slot DMA. Spheres come
-    first; a triangle replaces the best only if strictly nearer, the lowest
-    lane within a tile, the earlier tile across tiles, as the TPU kernel
-    combines them. Unlike the TPU kernel, a block stops at the first
-    supercluster whose block-min entry distance reaches its worst best-t
-    (``__syncthreads_or``, as ``find_closest``); the plain version does the
-    same, and no hit is lost: nothing in that box is nearer. Bound: the
-    FP32 pipes and the divide, as ``find_closest``; the slabs are read
-    once per active (block, supercluster), from L2 mostly.
+    which double-buffers 128 KB supercluster slabs into VMEM for 512-ray
+    blocks. What bounds it on the card is the test loop, ~37 float32
+    operations per (ray, triangle) test, and how many tests the walk makes:
+    a 16-cluster unit checked for the early out only at its end, and a
+    block of 512 rays that tests every tile for every lane, ran ~153 G
+    tests on the big frame's bounce-1 chunk. The design: 256-triangle
+    cluster tiles for blocks of 128 or 256 rays, front to back with the
+    early out at every tile; per ray a slab test against the cluster's
+    padded box, so a warp whose rays all miss the box skips the tile, and
+    a warp vote that skips triangles no live ray faces; two rays a lane,
+    so each triangle read from shared memory (four 16-byte loads, the
+    tile transposed at its copy) serves two tests; a producer warp that
+    keeps a ring of three stages filled by ``cp.async`` with ``mbarrier``
+    completion. Spheres come first; a triangle replaces the best only if
+    strictly nearer.
     """
     if not rays.is_cuda:
-        return find_streamed_plain(lists, rays, slabs, sph_pack, n_tris, sc)
-    nb = _check_streamed_args(lists, rays, slabs, sph_pack, sc)
+        return find_streamed_plain(lists, rays, pack, boxes, sph_pack,
+                                   n_tris)
+    nb = _check_walk_args(lists, rays, pack, boxes, 8, STREAM_RAY_BLOCK)
+    if sph_pack.device != rays.device or sph_pack.dtype != torch.float32 \
+            or not sph_pack.is_contiguous() or sph_pack.ndim != 2 \
+            or sph_pack.shape[1] != 8:
+        raise ValueError("sph_pack must be a contiguous float32 [Spad, 8] "
+                         f"tensor on {rays.device}")
     Rpad = rays.shape[0]
     out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
     out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
     FIND_STREAMED.launch(
         rays.device,
-        _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays),
-        _cuda.ptr(slabs), slabs.shape[0], sc, slabs.shape[2],
-        _cuda.ptr(sph_pack), sph_pack.shape[0], n_tris, STREAM_RAY_BLOCK,
-        nb, _cuda.ptr(out_t), _cuda.ptr(out_i),
+        _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays), _cuda.ptr(pack),
+        pack.shape[0], pack.shape[2], _cuda.ptr(boxes), _cuda.ptr(sph_pack),
+        sph_pack.shape[0], n_tris, STREAM_RAY_BLOCK, nb, _cuda.ptr(out_t),
+        _cuda.ptr(out_i),
     )
     return out_t, out_i
 
 
-def find_streamed_plain(lists, rays, slabs, sph_pack, n_tris, sc):
-    """Plain PyTorch version of ``find_streamed``: the walk of
-    ``find_closest_plain`` with blocks of STREAM_RAY_BLOCK rays and ``sc``
-    tiles per worklist entry."""
-    ns, _, ck = slabs.shape
-    tiles = slabs.reshape(ns * sc, 16, ck)
-    return _closest_walk(lists, rays, tiles, sph_pack, n_tris,
-                         STREAM_RAY_BLOCK, sc)
-
-
-def _check_streamed_args(lists, rays, slabs, sph_pack, sc):
-    """Validate what the streamed kernel reads; returns the block count."""
-    dev = rays.device
-    for name, x, dtype in (("lists", lists, torch.int32),
-                           ("rays", rays, torch.float32),
-                           ("slabs", slabs, torch.float32),
-                           ("sph_pack", sph_pack, torch.float32)):
-        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(
-                f"{name}: need a contiguous {dtype} tensor on {dev}, got "
-                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
-            )
-    Rpad = rays.shape[0]
-    if rays.ndim != 2 or rays.shape[1] != 8 or Rpad % STREAM_RAY_BLOCK:
-        raise ValueError(f"rays must be [nb * {STREAM_RAY_BLOCK}, 8], got "
-                         f"{tuple(rays.shape)}")
-    nb = Rpad // STREAM_RAY_BLOCK
-    if slabs.ndim != 3 or slabs.shape[1] != 16 * sc or slabs.shape[2] > 512 \
-            or slabs.shape[2] % 4:
-        raise ValueError(f"slabs must be [NS, 16 * {sc}, CK <= 512, a "
-                         f"multiple of 4], got {tuple(slabs.shape)}")
-    ns = slabs.shape[0]
-    if lists.shape != (nb, 1 + 2 * ns):
-        raise ValueError(f"lists {tuple(lists.shape)} do not fit {nb} "
-                         f"blocks of {ns} superclusters")
-    if sph_pack.ndim != 2 or sph_pack.shape[1] != 8:
-        raise ValueError(f"sph_pack must be [Spad, 8], got "
-                         f"{tuple(sph_pack.shape)}")
-    return nb
+def find_streamed_plain(lists, rays, pack, boxes, sph_pack, n_tris):
+    """Plain PyTorch version of ``find_streamed``: spheres first, then the
+    walk of ``_lane_walk`` (the same lists, order, per-ray test, early out
+    and tie rule)."""
+    tc = _sphere_tc(rays, sph_pack)
+    best = tc.amin(dim=1)
+    srow = torch.arange(tc.shape[1], dtype=torch.int32, device=rays.device)
+    index = torch.where(tc <= best[:, None], n_tris + srow,
+                        2 ** 30).amin(dim=1).to(torch.int32)
+    index = torch.where(best < _BIG, index, -1)
+    if n_tris > 0:
+        _lane_walk(lists, rays, pack, boxes, best, index)
+    return best, torch.where(best < _BIG, index, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -726,82 +873,150 @@ def find_occluded(scene, org, dir, time, t_bound, t_min=None,
     gate on ``scene_no_emissive_tris``.
     """
     R = org.shape[0]
+    lists, rays, perm, pack, boxes, n_tris = occluded_inputs(
+        scene, org, dir, time, t_bound, t_min, sphere_occluder)
+    return find_any(lists, rays, perm, pack, boxes, n_tris)[:R] > 0
+
+
+@torch.no_grad()
+def occluded_inputs(scene, org, dir, time, t_bound, t_min=None,
+                    sphere_occluder=None):
+    """The arguments of ``find_any`` for a wavefront: (lists, rays, perm,
+    pack, boxes, n_tris).
+
+    ``any_regroup`` tests the occluder spheres and regroups the wavefront,
+    live rays first; the cull sees the resolved rays as dead, so blocks of
+    them get empty lists.
+    """
     t_min = _per_ray_t_min(t_min, org)
-    rays, nb = _ray_table(
+    rays, perm, cull_t_min, cull_t_max = any_regroup(
+        org, dir, time, t_min, t_bound,
+        _pack_spheres(scene, sphere_occluder))
+    pack, lists = _scene_lists(scene, rays[:, 0:3], rays[:, 3:6], cull_t_min,
+                               cull_t_max, rays.shape[0] // RAY_BLOCK,
+                               cull=True)
+    if pack.shape[0]:
+        boxes = _lane_boxes(*_cluster_boxes(scene))
+    else:
+        boxes = torch.zeros((0, 8), device=rays.device)
+    return lists, rays, perm, pack, boxes, scene.tri_v0.shape[0]
+
+
+def any_regroup(org, dir, time, t_min, t_bound, sph_pack):
+    """Kernel 2's wavefront, resolved where the spheres decide and
+    regrouped -> (rays [Rpad, 9], perm [Rpad] int32, cull_t_min [Rpad],
+    cull_t_max [Rpad]), Rpad = R rounded up to whole ``RAY_BLOCK``s.
+
+    A ray is resolved when its bound is negative (dead) or an occluder
+    sphere of ``sph_pack`` has its nearest valid root before the bound
+    (the kernel's formulas, ``_sphere_tc``); its bound becomes -3e38. The
+    ray table ox oy oz dx dy dz time t_min bound is partitioned stably,
+    live rays first, each part in wavefront order (pad rows are dead);
+    ``perm[r]`` is the wavefront index of row r. The cull's t_min is
+    3e38 and its t_max 0 on resolved rows, t_min and the bound elsewhere.
+
+    Launches the CUDA pass on CUDA tensors (csrc/find.cu
+    ``srt_any_regroup``: a flag-and-count kernel, a scan of the block
+    counts and a scatter, from one C call), runs ``any_regroup_plain`` on
+    CPU tensors. It replaces the sphere test of ``_occluded_kernel``
+    (pallas_find.py:689-728), which the TPU ran inside the kernel.
+    """
+    if not org.is_cuda:
+        return any_regroup_plain(org, dir, time, t_min, t_bound, sph_pack)
+    org, dir, time, t_min, t_bound = (
+        x.to(torch.float32).contiguous()
+        for x in (org, dir, time, t_min, t_bound))
+    R = org.shape[0]
+    dev = org.device
+    if org.shape != (R, 3) or dir.shape != (R, 3) \
+            or any(x.shape != (R,) for x in (time, t_min, t_bound)) \
+            or any(x.device != dev for x in (dir, time, t_min, t_bound)):
+        raise ValueError(f"any_regroup: need org, dir [R, 3] and time, "
+                         f"t_min, t_bound [R] on {dev}")
+    if sph_pack.device != dev or sph_pack.dtype != torch.float32 \
+            or not sph_pack.is_contiguous() or sph_pack.ndim != 2 \
+            or sph_pack.shape[1] != 8:
+        raise ValueError(f"sph_pack must be a contiguous float32 [Spad, 8] "
+                         f"tensor on {dev}")
+    Rpad = -(-R // RAY_BLOCK) * RAY_BLOCK
+    n_blocks = -(-Rpad // _REGROUP_BLOCK)
+    scratch = torch.empty(Rpad + 2 * n_blocks + 1, dtype=torch.int32,
+                          device=dev)
+    rays = torch.empty((Rpad, 9), dtype=torch.float32, device=dev)
+    perm = torch.empty(Rpad, dtype=torch.int32, device=dev)
+    cull = torch.empty((2, Rpad), dtype=torch.float32, device=dev)
+    ANY_REGROUP.launch(
+        dev, _cuda.ptr(org), _cuda.ptr(dir), _cuda.ptr(time),
+        _cuda.ptr(t_min), _cuda.ptr(t_bound), R, _cuda.ptr(sph_pack),
+        sph_pack.shape[0], Rpad, _cuda.ptr(scratch), _cuda.ptr(rays),
+        _cuda.ptr(perm), _cuda.ptr(cull[0]), _cuda.ptr(cull[1]),
+    )
+    return rays, perm, cull[0], cull[1]
+
+
+def any_regroup_plain(org, dir, time, t_min, t_bound, sph_pack):
+    """Plain PyTorch version of ``any_regroup``: the sphere test of
+    ``_sphere_tc``, then a stable sort on the resolved flag."""
+    rays, _ = _ray_table(
         [org[:, 0], org[:, 1], org[:, 2], dir[:, 0], dir[:, 1], dir[:, 2],
          time, t_min, t_bound], {7: _BIG, 8: -_BIG})
-    # the closest occluder-sphere hit tightens the cull bound: once a
-    # sphere occludes, no triangle cluster can change the answer
-    cull_max = torch.clamp(t_bound, min=0.0)
-    if scene.tri_v0.shape[0] > 0 and scene.sph_c0.shape[0] > 0 \
-            and sphere_occluder is not None:
-        root, valid = sphere_roots(scene, org, dir, time, t_min)
-        valid = valid & sphere_occluder[None, :]
-        so_t = torch.where(valid, root, _BIG).amin(dim=1)
-        cull_max = torch.minimum(cull_max, so_t)
-    tri_pack, lists = _scene_lists(scene, org, dir, t_min, cull_max, nb,
-                                   cull=True)
-    occ = find_any(lists, rays, tri_pack,
-                   _pack_spheres(scene, sphere_occluder),
-                   scene.tri_v0.shape[0])
-    return occ[:R] > 0
+    tc = _sphere_tc(rays, sph_pack)
+    occ = torch.where(tc < rays[:, 8:9], tc, _BIG).amin(dim=1) < _BIG
+    resolved = occ | (rays[:, 8] < 0.0)
+    perm = torch.sort(resolved.to(torch.uint8), stable=True).indices
+    rays = rays[perm]
+    resolved = resolved[perm]
+    rays[:, 8] = torch.where(resolved, -_BIG, rays[:, 8])
+    return rays, perm.to(torch.int32), \
+        torch.where(resolved, _BIG, rays[:, 7]), \
+        torch.where(resolved, 0.0, rays[:, 8])
 
 
-def find_any(lists, rays, tri_pack, sph_pack, n_tris):
-    """Occlusion flag per ray -> [Rpad] int32 (1 = a valid hit before the
-    ray's bound, or a dead lane).
+def find_any(lists, rays, perm, pack, boxes, n_tris):
+    """Occlusion flag per wavefront ray -> [Rpad] int32 (1 = a valid hit
+    before the ray's bound, or a ray resolved before: dead or occluded by
+    a sphere), from the regrouped table of ``occluded_inputs``.
 
     Launches the CUDA kernel on CUDA tensors (csrc/find.cu), runs
     ``find_any_plain`` on CPU tensors.
 
-    Kernel note. Replaces ``_occluded_kernel`` (pallas_find.py:681). The
-    skeleton of ``find_closest``: one block per worklist row, tiles in
-    shared memory. A lane stops testing at its first occluder and its
-    bound drops to -3e38; the block stops when every lane is resolved or
-    no remaining cluster starts before a live bound. Bound: as the
-    closest-hit kernel, but most last-bounce rays die on the ground
-    sphere before any triangle work.
+    Kernel note. Replaces ``_occluded_kernel`` (pallas_find.py:681). What
+    bounded the first port was divergence: most last-bounce rays die on
+    the ground sphere, yet every lane of a block ran every tile the block
+    visited, idle or stopped at its first occluder by a per-lane break.
+    The design: the rays resolved before any triangle work leave the
+    wavefront before the cull (``any_regroup``); the kernel takes the
+    live rays regrouped into dense blocks (blocks of resolved rays have
+    empty lists and leave at once) and writes each flag to its ray's own
+    index; it walks the tiles as ``find_streamed`` does (the same ring,
+    layout and per-ray box test), an occluder ends a ray's tests by a
+    predicate, a warp leaves a tile once its rays are resolved and a tile
+    that no ray enters is skipped by the warp. Any hit is free of order,
+    so the flags equal the first port's on the same wavefront.
     """
     if not rays.is_cuda:
-        return find_any_plain(lists, rays, tri_pack, sph_pack, n_tris)
-    nb = _check_find_args(lists, rays, tri_pack, sph_pack, 9)
+        return find_any_plain(lists, rays, perm, pack, boxes, n_tris)
+    nb = _check_walk_args(lists, rays, pack, boxes, 9, RAY_BLOCK)
+    if perm.device != rays.device or perm.dtype != torch.int32 \
+            or perm.shape != (rays.shape[0],) or not perm.is_contiguous():
+        raise ValueError(f"perm must be a contiguous int32 [{rays.shape[0]}] "
+                         f"tensor on {rays.device}")
     out = torch.empty(rays.shape[0], dtype=torch.int32, device=rays.device)
     FIND_ANY.launch(
         rays.device,
-        _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays),
-        _cuda.ptr(tri_pack), tri_pack.shape[0], tri_pack.shape[2],
-        _cuda.ptr(sph_pack), sph_pack.shape[0], n_tris, RAY_BLOCK, nb,
-        _cuda.ptr(out),
+        _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays), _cuda.ptr(perm),
+        _cuda.ptr(pack), pack.shape[0], pack.shape[2], _cuda.ptr(boxes),
+        n_tris, RAY_BLOCK, nb, _cuda.ptr(out),
     )
     return out
 
 
-def find_any_plain(lists, rays, tri_pack, sph_pack, n_tris):
-    """Plain PyTorch version of ``find_any``, vectorized over ray blocks."""
-    Rpad = rays.shape[0]
-    nb = Rpad // RAY_BLOCK
-    nc = tri_pack.shape[0]
-    out = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
-    for b0, b1 in _block_chunks(nb, tri_pack):
-        rb = rays[b0 * RAY_BLOCK:b1 * RAY_BLOCK]
-        bound = rb[:, 8]
-        tc = _sphere_tc(rb, sph_pack)
-        occ0 = torch.where(tc < bound[:, None], tc, _BIG).amin(dim=1) < _BIG
-        bnd = torch.where(occ0, -_BIG, bound).reshape(b1 - b0, RAY_BLOCK)
-        if n_tris > 0 and nc > 0:
-            rays_b = rb.reshape(b1 - b0, RAY_BLOCK, -1)
-            lst = lists[b0:b1]
-            count = lst[:, 0]
-            active = torch.ones(b1 - b0, dtype=torch.bool, device=rays.device)
-            for k in range(nc):
-                active &= (k < count) & (lst[:, 1 + nc + k] < _worst_bits(bnd))
-                blk = active.nonzero().squeeze(1)
-                if blk.numel() == 0:
-                    break
-                c = lst[blk, 1 + k].long()
-                t, valid = _tile_t(tri_pack[c], rays_b[blk])
-                hit = (valid & (t < bnd[blk][..., None])).any(dim=2)
-                bnd[blk] = torch.where(hit, -_BIG, bnd[blk])
-        out[b0 * RAY_BLOCK:b1 * RAY_BLOCK] = (bnd < 0.0).reshape(-1).to(
-            torch.int32)
+def find_any_plain(lists, rays, perm, pack, boxes, n_tris):
+    """Plain PyTorch version of ``find_any``: the walk of ``_lane_walk``
+    on the regrouped rays, each flag written to its ray's own index."""
+    bound = rays[:, 8].clone()
+    if n_tris > 0:
+        _lane_walk(lists, rays, pack, boxes, bound)
+    out = torch.empty(rays.shape[0], dtype=torch.int32, device=rays.device)
+    out[perm.long()] = (bound < 0.0).to(torch.int32)
     return out

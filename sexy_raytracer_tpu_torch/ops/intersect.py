@@ -41,7 +41,7 @@ from sexy_raytracer_tpu_torch.utils.mathx import (
 T_MIN_DEFAULT = 0.001  # reference main.cpp:39
 
 # Past this many triangles ``method="auto"`` takes the streamed
-# supercluster find, as the JAX package does (intersect.py:47-50).
+# find, as the JAX package does (intersect.py:47-50).
 PALLAS_RESIDENT_MAX_TRIS = 120_000
 
 
@@ -182,7 +182,7 @@ def find_hit(scene, org, dir, time, t_min=None, method="auto"):
         big scenes to ``bvh`` instead, which finds the same closest hit);
       * ``pallas`` — the cluster-culled find (ops/find.py);
       * ``pallas_nocull`` — the same with culling disabled (test aid);
-      * ``streamed`` — the supercluster find for big scenes (ops/find.py);
+      * ``streamed`` — the streamed find for big scenes (ops/find.py);
       * ``pallas_mxu`` — the brute-force weight-stack kernel (ops/brute.py);
       * ``bruteforce`` — the tiled plain scan;
       * ``bvh`` — the skip-link BVH traversal, the correctness referee

@@ -9,7 +9,7 @@ Subcommands:
                  ops per step and the per-op device times
   histogram      direct-vs-sorted dense_histogram A/B at the bench's sizes
   bigscene       find-hit throughput over scene size (resident cluster
-                 kernel vs streamed supercluster kernel), each size in a
+                 kernel vs streamed cluster kernel), each size in a
                  subprocess; the rows go to ``--out``
   _bigscene_one  one size of that sweep
 

@@ -1,5 +1,5 @@
 """The port's big-scene hit search against the JAX package: the per-block
-interval cull, the streamed supercluster find (plain version of its CUDA
+interval cull, the streamed cluster find (plain version of its CUDA
 kernel), the size dispatch of ``find_hit``, the block-culled resident
 find and occlusion, the brute-force weight-stack find, and a 4-bounce
 trace through all of them. The JAX side runs as its own tests run it:
@@ -84,7 +84,7 @@ def relief39():
 @pytest.fixture(scope="module")
 def soup():
     """tests/test_pallas_find.py:185-199: a 9,000-triangle soup (36
-    clusters, 3 superclusters of 16) and a sphere, 1,024 rays."""
+    clusters) and a sphere, 1,024 rays."""
     r = np.random.default_rng(1234)
     T = 9000
     c = r.uniform(-8, 8, (T, 3))
@@ -156,10 +156,11 @@ def test_cluster_lists_block_matches_jax(relief39, kind):
 @pytest.mark.parametrize("max_supers", [1024, 2])
 def test_streamed_matches_jax(soup, monkeypatch, max_supers):
     """Port's plain streamed find vs JAX's interpret run; at MAX_SUPERS = 2
-    both packages double the supercluster to 32 clusters (2 slabs)."""
+    JAX doubles its supercluster to 32 clusters (2 slabs). The port's walk
+    does not depend on it: its lists hold single clusters for blocks of
+    STREAM_RAY_BLOCK rays."""
     jscene, tscene, rays = soup
     monkeypatch.setattr(jfind, "MAX_SUPERS", max_supers)
-    monkeypatch.setattr(tfind, "MAX_SUPERS", max_supers)
     (jo, jd, jt), (to, td, tt) = _both(rays)
     p_j, t_j = map(np.asarray, jfind.find_hit_streamed(jscene, jo, jd, jt))
     before = tfind.FIND_STREAMED.launches
@@ -170,10 +171,14 @@ def test_streamed_matches_jax(soup, monkeypatch, max_supers):
     p_b, t_b = tint.find_hit_bruteforce(tscene, to, td, tt)
     np.testing.assert_array_equal(p_t, p_b.numpy())
     assert (p_t >= 0).sum() > 50 and (p_t == tscene.num_triangles).any()
-    # the slabs the kernel reads: sc clusters each, the packs' tiles in order
+    # the walk's grouping: one list entry per 256-triangle cluster, one
+    # row per block of STREAM_RAY_BLOCK rays; the pack's tiles as they are
     nc = tscene.cluster_min.shape[0]
-    sc = 16 if max_supers > 2 else 32
-    assert -(-nc // sc) == (3 if sc == 16 else 2)
+    lists, rays_t, pack, boxes, _, _ = tfind.streamed_inputs(
+        tscene, to, td, tt)
+    assert nc == 36 and pack.shape == (nc, 16, 256) and boxes.shape == (nc, 8)
+    assert lists.shape == (1024 // tfind.STREAM_RAY_BLOCK, 1 + 2 * nc)
+    assert rays_t.shape == (1024, 8) and lists[:, 0].max() <= nc
 
 
 def test_auto_dispatches_streamed_past_the_resident_limit(relief39,
@@ -287,7 +292,7 @@ def test_brute_per_ray_t_min_goes_to_bruteforce(relief39, monkeypatch):
 @pytest.mark.parametrize("vis", [False, True])
 def test_trace_through_the_big_scene_path_matches_jax(monkeypatch, vis):
     """The slice as a whole: 2,048 flagship-camera paths, 4 bounces, on
-    the relief at n = 67 (8,978 triangles, 36 clusters, 3 superclusters).
+    the relief at n = 67 (8,978 triangles, 36 clusters).
     The port runs ``auto`` with both limits patched, so it goes through
     the streamed find and the block cull; JAX runs ``streamed`` with its
     cull limit patched alike."""
@@ -322,3 +327,109 @@ def test_trace_through_the_big_scene_path_matches_jax(monkeypatch, vis):
     close = np.isclose(got, want, atol=2e-5, rtol=1e-5).all(axis=1)
     assert close.mean() >= 0.995, f"{(~close).sum()}/{R} rays outside"
     assert got.max() > 0.1
+
+
+@pytest.mark.parametrize("kind", ["random", "axis"])
+def test_cluster_lists_cover_exact_actives(soup, kind):
+    """The streamed walk's lists (the interval cull over single clusters,
+    STREAM_RAY_BLOCK-ray blocks) hold every cluster that the exact per-ray
+    cull activates for a ray of the block, and their entry distances do
+    not exceed the exact cull's block minimum."""
+    _, tscene, rays = soup
+    r = np.random.default_rng(21)
+    org = torch.from_numpy(rays[0])
+    d = torch.from_numpy(rays[1])
+    if kind == "axis":
+        dn = np.zeros((1024, 3), np.float32)
+        dn[np.arange(1024), r.integers(0, 3, 1024)] = r.choice([-1.0, 1.0],
+                                                               1024)
+        d = torch.from_numpy(dn)
+    t_min = torch.from_numpy(np.where(r.random(1024) < 0.1, BIG, 1e-3)
+                             .astype(np.float32))
+    time = torch.from_numpy(rays[2])
+    lists = tfind.streamed_inputs(tscene, org, d, time, t_min)[0].numpy()
+    bound, _ = tint._sph_candidates(tscene, org, d, time, t_min)
+    exact = tfind.cluster_lists(org, d, t_min, tscene.cluster_min,
+                                tscene.cluster_max, t_max=bound,
+                                ray_block=tfind.STREAM_RAY_BLOCK).numpy()
+    nc = tscene.cluster_min.shape[0]
+    assert lists.shape == exact.shape
+    for row_b, row_e in zip(lists, exact):
+        kb, ke = row_b[0], row_e[0]
+        ent_b = dict(zip(row_b[1:1 + kb], row_b[1 + nc:1 + nc + kb]))
+        assert set(row_e[1:1 + ke]) <= set(ent_b)
+        for c, e in zip(row_e[1:1 + ke], row_e[1 + nc:1 + nc + ke]):
+            assert ent_b[c] <= e
+        assert (np.diff(row_b[1 + nc:1 + nc + kb]) >= 0).all()
+    assert exact[:, 0].sum() > 0
+
+
+def _occlusion_wave(kind, n=1024, seed=31):
+    """(org, dir, time, t_min, bound) over the relief: 'sphere' aims 85%
+    of the rays down into the ground sphere, 'dead' marks every ray
+    dead."""
+    r = np.random.default_rng(seed)
+    org = r.normal(0, 2.0, (n, 3)) + np.array([0.0, 2.5, 1.0])
+    d = r.normal(size=(n, 3))
+    down = r.random(n) < 0.85
+    d[down, 1] = -np.abs(d[down, 1]) - 2.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    time = r.uniform(0, 1, n)
+    t_min = np.where(r.random(n) < 0.05, BIG, 1e-3)
+    bound = np.where(r.random(n) < 0.5, BIG, r.uniform(0.5, 20.0, n))
+    bound = np.where(t_min < BIG, bound, -BIG)
+    if kind == "dead":
+        bound = np.full(n, -BIG)
+    return [x.astype(np.float32) for x in (org, d, time, t_min, bound)]
+
+
+@pytest.mark.parametrize("kind", ["sphere", "dead"])
+def test_regrouped_occlusion_matches_jax(relief39, kind):
+    """The regrouped any-hit walk (plain version of kernel 2) equals JAX's
+    ``find_occluded`` flag for flag, on a wavefront whose rays mostly die
+    on the ground sphere and on an all-dead one; resolved rays leave the
+    cull (their blocks get empty lists) and the flags go back to each
+    ray's own index; the flags are also those that the closest hits
+    imply (``checks.occlusion_by_closest_hit``)."""
+    from sexy_raytracer_tpu_torch.checks import occlusion_by_closest_hit
+
+    jscene, tscene = relief39
+    arrs = _occlusion_wave(kind)
+    (jo, jd, jt, jtm, jb), (to, td, tt, ttm, tb) = _both(arrs)
+    emis = (np.asarray(jscene.mat_type)[np.asarray(jscene.sph_mat)] == 3)
+    occ_j = np.asarray(jfind.find_occluded(
+        jscene, jo, jd, jt, jb, t_min=jtm,
+        sphere_occluder=jnp.asarray(~emis)))
+    inp = tfind.occluded_inputs(tscene, to, td, tt, tb, t_min=ttm,
+                                sphere_occluder=torch.from_numpy(~emis))
+    lists, rays_c, perm = inp[0], inp[1], inp[2]
+    occ_t = tfind.find_any(*inp)[:1024].numpy() > 0
+    np.testing.assert_array_equal(occ_t, occ_j)
+    np.testing.assert_array_equal(
+        occ_t, occlusion_by_closest_hit(tscene, to, td, tt, ttm, tb,
+                                        torch.from_numpy(~emis)).numpy())
+    np.testing.assert_array_equal(np.sort(perm.numpy()), np.arange(1024))
+    live = (rays_c[:, 8] >= 0.0).numpy()
+    n_live = int(live.sum())
+    assert live[:n_live].all() and not live[n_live:].any()
+    assert (np.diff(perm.numpy()[:n_live]) > 0).all()  # wavefront order
+    first_dead_block = -(-n_live // tfind.RAY_BLOCK)
+    assert (lists[first_dead_block:, 0] == 0).all()
+    if kind == "dead":
+        assert occ_t.all() and n_live == 0
+    else:
+        assert 0.05 < n_live / 1024 < 0.5 and (~occ_t).sum() > 10
+
+
+def test_interval_cull_in_groups_matches_one_pass(relief39, monkeypatch):
+    """Past CULL_PAIRS_MAX (block, box) pairs the interval cull runs over
+    groups of blocks; the rows are those of one pass."""
+    _, tscene = relief39
+    (_, _, _), (to, td, ttm) = _both(_rays("random", 1000, seed=17))
+    bound = torch.where(ttm < BIG, 6.0, -BIG)
+    cmin, cmax = tscene.cluster_min, tscene.cluster_max
+    whole = tfind.cluster_lists_block(to, td, ttm, cmin, cmax, t_max=bound)
+    monkeypatch.setattr(tfind, "CULL_PAIRS_MAX", 3 * cmin.shape[0])
+    grouped = tfind.cluster_lists_block(to, td, ttm, cmin, cmax, t_max=bound)
+    assert whole.shape == (8, 25)
+    assert torch.equal(grouped, whole)

@@ -111,14 +111,9 @@ def test_find_any_kernel_matches_plain(scene, dev):
                                 sphere_occluder=~emis)
     torch.cuda.synchronize()
     assert tfind.FIND_ANY.launches == before + 1
-    rays, nb = tfind._ray_table(
-        [org[:, 0], org[:, 1], org[:, 2], d[:, 0], d[:, 1], d[:, 2], t,
-         t_min, bound], {7: 3.0e38, 8: -3.0e38})
-    tri_pack, lists = tfind._scene_lists(
-        scene, org, d, t_min, torch.clamp(bound, min=0.0), nb, cull=True)
-    occ_p = tfind.find_any_plain(lists, rays, tri_pack,
-                                 tfind._pack_spheres(scene, ~emis),
-                                 scene.num_triangles)[:8192] > 0
+    inp = tfind.occluded_inputs(scene, org, d, t, bound, t_min=t_min,
+                                sphere_occluder=~emis)
+    occ_p = tfind.find_any_plain(*inp)[:8192] > 0
     assert torch.equal(occ_k, occ_p)
     # lit lanes stay lit: some rays reach the light unoccluded
     lit = (t_min < 1e38) & torch.isfinite(t_em)
@@ -359,8 +354,8 @@ def test_train_gradients_on_card_match_cpu(scene, dev, small_cfg):
 
 @pytest.fixture(scope="module")
 def big_scene(dev, tmp_path_factory):
-    """The stand-in at n = 128: 32,768 triangles, 128 clusters, 8
-    superclusters, with its BVH."""
+    """The stand-in at n = 128: 32,768 triangles, 128 clusters, with its
+    BVH."""
     s, _ = presets.flagship_standin(
         n=128, data_dir=str(tmp_path_factory.mktemp("no-assets")), device=dev,
         build_bvh=True)
@@ -368,8 +363,8 @@ def big_scene(dev, tmp_path_factory):
 
 
 def test_find_streamed_kernel_matches_plain(big_scene, dev):
-    """Kernel 8 against its plain version on the same supercluster lists:
-    the same prim ids and t bits; and the referees agree."""
+    """Kernel 8 against its plain version on the same cluster lists: the
+    same prim ids and t bits; and the referees agree."""
     org, d, t, t_min = _fuzz(8192, dev, seed=3)
     inp = tfind.streamed_inputs(big_scene, org, d, t, t_min)
     before = tfind.FIND_STREAMED.launches
@@ -384,6 +379,63 @@ def test_find_streamed_kernel_matches_plain(big_scene, dev):
                            method="streamed")
     p_v, _ = tint.find_hit(big_scene, org, d, t, t_min=t_min, method="bvh")
     assert (p_s != p_v).float().mean() < 1e-3
+
+
+@pytest.mark.parametrize("wave", ["sphere", "dead blocks", "ties"])
+def test_walk_kernels_on_hard_wavefronts(big_scene, dev, wave):
+    """Kernels 8 and 2 against their plain versions where most lanes die
+    on the ground sphere, where whole blocks are dead, and on rays through
+    vertices and edges that clusters share (exact ties): t bits and prim
+    ids equal, flags equal; the any-hit flags also equal those of the
+    closest hit's contract (occluded unless the closest hit lies at or
+    beyond the bound), from kernel 8 on its own lists."""
+    org, d, t, t_min, bound = checks.hard_wavefronts(big_scene)[wave]
+    inp = tfind.streamed_inputs(big_scene, org, d, t, t_min)
+    t_k, p_k = tfind.find_streamed(*inp)
+    t_p, p_p = tfind.find_streamed_plain(*inp)
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    emis = big_scene.mat_type[big_scene.sph_mat.long()] == MAT_LIGHT
+    inp = tfind.occluded_inputs(big_scene, org, d, t, bound, t_min=t_min,
+                                sphere_occluder=~emis)
+    before = tfind.FIND_ANY.launches
+    o_k = tfind.find_any(*inp)
+    torch.cuda.synchronize()
+    assert tfind.FIND_ANY.launches == before + 1
+    assert torch.equal(o_k, tfind.find_any_plain(*inp))
+    want = checks.occlusion_by_closest_hit(big_scene, org, d, t, t_min,
+                                           bound, ~emis)
+    assert torch.equal(o_k[:org.shape[0]] > 0, want)
+    live = int((inp[1][:, 8] >= 0).sum())
+    if wave == "dead blocks":
+        assert bool(o_k[:2048].all()) and bool(o_k[4096:5120].all())
+    if wave != "ties":
+        assert live < 0.5 * org.shape[0]
+
+
+@pytest.mark.parametrize("wave", ["sphere", "dead blocks", "ties", "fuzz"])
+def test_any_regroup_kernel_matches_plain(big_scene, dev, wave):
+    """Kernel 2's regrouping pass against its plain version: the ray
+    table, the permutation and the cull's bounds bit for bit, on the hard
+    wavefronts and on 5,000 fuzz rays (not whole blocks of either kernel
+    of the pass)."""
+    if wave == "fuzz":
+        org, d, t, t_min = _fuzz(5000, dev, seed=13)
+        bound = torch.where(t_min < 1e38, 6.0, -3.0e38)
+    else:
+        org, d, t, t_min, bound = checks.hard_wavefronts(big_scene)[wave]
+    emis = big_scene.mat_type[big_scene.sph_mat.long()] == MAT_LIGHT
+    inp = (org, d, t, t_min, bound, tfind._pack_spheres(big_scene, ~emis))
+    before = tfind.ANY_REGROUP.launches
+    got = tfind.any_regroup(*inp)
+    torch.cuda.synchronize()
+    assert tfind.ANY_REGROUP.launches == before + 1
+    want = tfind.any_regroup_plain(*inp)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    live = int((got[0][:, 8] >= 0).sum())
+    assert 0 < live < org.shape[0] or wave == "ties"
 
 
 def test_tri_brute_kernel_matches_plain(scene, dev):

@@ -20,6 +20,7 @@ from sexy_raytracer_tpu_torch.models.scene import scene_from_numpy  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import find as tfind  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import intersect as tint  # noqa: E402
 from sexy_raytracer_tpu_torch.ops.find import (  # noqa: E402
+    ANY_REGROUP,
     FIND_ANY,
     FIND_CLOSEST,
 )
@@ -207,3 +208,105 @@ def _jax_tree(jscene):
     bvh = build_bvh(jax.device_get(jscene))
     return dict(bvh_min=bvh.node_min, bvh_max=bvh.node_max,
                 bvh_left=bvh.left, bvh_right=bvh.right, bvh_skip=bvh.skip)
+
+
+def test_needed_tests_counter_on_a_toy():
+    """``checks.needed_tests`` by hand: two clusters of CK = 4
+    (the second holds 2 of the 6 triangles), unit boxes at x in [0, 1]
+    and [2, 3]. A +x ray with best t 2.5 enters the first box only (4
+    tests); the same ray with best 3e38 enters both (6); a +y ray misses
+    both; a dead ray and a resolved any-hit lane (state -3e38) need none."""
+    from sexy_raytracer_tpu_torch.checks import needed_tests
+
+    cmin = torch.tensor([[0.0, 0.0, 0.0], [2.0, 0.0, 0.0]])
+    cmax = torch.tensor([[1.0, 1.0, 1.0], [3.0, 1.0, 1.0]])
+    o = [-1.0, 0.5, 0.5]
+    rays = torch.tensor([o + [1, 0, 0, 0, 1e-3], o + [1, 0, 0, 0, 1e-3],
+                         o + [0, 1, 0, 0, 1e-3], o + [1, 0, 0, 0, BIG],
+                         o + [1, 0, 0, 0, 1e-3]], dtype=torch.float32)
+    state = torch.tensor([2.5, BIG, BIG, BIG, -BIG])
+    assert needed_tests(rays, state, cmin, cmax, 6, 4) == 10
+    assert needed_tests(rays[:1], torch.tensor([2.0]), cmin, cmax, 6, 4) == 4
+    assert needed_tests(rays[:1], torch.tensor([0.5]), cmin, cmax, 6, 4) == 0
+
+
+@pytest.mark.parametrize("wave", sorted(WAVEFRONTS))
+def test_any_regroup_partitions_the_wavefront(scenes, wave):
+    """Kernel 2's regrouping pass (plain version on the CPU): the ray
+    table padded to whole blocks and split stably, live rays first; a ray
+    is resolved exactly when its bound is negative or an occluder
+    sphere's nearest valid root lies before it, and every resolved ray is
+    occluded by JAX's ``find_occluded``."""
+    jscene, tscene = scenes
+    (jo, jd, jt, jtm), (to, td, tt, ttm) = _both(WAVEFRONTS[wave]())
+    t_em, _ = jint.emissive_sphere_hit(jscene, jo, jd, jt, jtm)
+    t_em = np.asarray(t_em)
+    bound = np.where(np.asarray(jtm) < BIG,
+                     np.where(np.isfinite(t_em), t_em, BIG),
+                     -BIG).astype(np.float32)
+    emis = (np.asarray(jscene.mat_type)[np.asarray(jscene.sph_mat)] == 3)
+    occ_j = np.asarray(jfind.find_occluded(
+        jscene, jo, jd, jt, jnp.asarray(bound), t_min=jtm,
+        sphere_occluder=jnp.asarray(~emis)))
+    sph = tfind._pack_spheres(tscene, torch.from_numpy(~emis))
+    tb = torch.from_numpy(bound)
+    before = ANY_REGROUP.launches
+    rays, perm, cull_t_min, cull_t_max = tfind.any_regroup(
+        to, td, tt, ttm, tb, sph)
+    assert ANY_REGROUP.launches == before   # CPU tensors: the plain version
+    R, Rpad = 2048, rays.shape[0]
+    assert Rpad % tfind.RAY_BLOCK == 0 and rays.shape == (Rpad, 9)
+    perm = perm.numpy()
+    np.testing.assert_array_equal(np.sort(perm), np.arange(Rpad))
+    live = rays[:, 8].numpy() >= 0.0
+    n_live = int(live.sum())
+    assert live[:n_live].all() and not live[n_live:].any()
+    assert (np.diff(perm[:n_live]) > 0).all()
+    assert (np.diff(perm[n_live:]) > 0).all()
+    # each row is its wavefront ray's, the bound -3e38 once resolved
+    table = np.concatenate(
+        [np.stack([to.numpy()[:, 0], to.numpy()[:, 1], to.numpy()[:, 2],
+                   td.numpy()[:, 0], td.numpy()[:, 1], td.numpy()[:, 2],
+                   tt.numpy(), ttm.numpy(), bound], axis=1),
+         np.tile(np.array([0, 0, 0, 0, 0, 0, 0, BIG, -BIG], np.float32),
+                 (Rpad - R, 1))]).astype(np.float32)
+    want = table[perm]
+    want[~live, 8] = -BIG
+    np.testing.assert_array_equal(rays.numpy(), want)
+    # resolved: a negative bound, or an occluder sphere before it
+    tc = tfind._sphere_tc(torch.from_numpy(table), sph).numpy()
+    by_sphere = (np.where(tc < table[:, 8:9], tc, BIG).min(axis=1) < BIG)
+    np.testing.assert_array_equal(~live, (table[perm, 8] < 0) | by_sphere[perm])
+    resolved = np.zeros(Rpad, bool)
+    resolved[perm] = ~live
+    assert occ_j[resolved[:R]].all()
+    assert resolved[:R].sum() > 0 and (~resolved[:R]).sum() > 0
+    np.testing.assert_array_equal(cull_t_min.numpy(),
+                                  np.where(live, want[:, 7], BIG))
+    np.testing.assert_array_equal(cull_t_max.numpy(),
+                                  np.where(live, want[:, 8], 0.0))
+
+
+def test_scene_packs_are_derived_once(scenes):
+    """The triangle pack and the walk's padded boxes are kept for the
+    tensors they came from, and rebuilt for new tensors or after an
+    in-place change."""
+    _, tscene = scenes
+    pack, nc = tfind._pack_triangles(tscene)
+    assert tfind._pack_triangles(tscene)[0] is pack
+    cmin, cmax = tscene.cluster_min.clone(), tscene.cluster_max.clone()
+    boxes = tfind._lane_boxes(cmin, cmax)
+    assert tfind._lane_boxes(cmin, cmax) is boxes
+    fresh = tfind._lane_boxes(cmin.clone(), cmax)
+    assert fresh is not boxes and torch.equal(fresh, boxes)
+    cmin += 1.0
+    moved = tfind._lane_boxes(cmin, cmax)
+    assert moved is not boxes
+    assert torch.equal(moved, tfind._lane_boxes(cmin.clone(), cmax.clone()))
+    assert not torch.equal(moved, boxes)
+    moved_tri = tscene._replace(tri_d=tscene.tri_d + 1.0)
+    pack2, _ = tfind._pack_triangles(moved_tri)
+    assert pack2 is not pack
+    np.testing.assert_array_equal(pack2[:, 3].numpy(),
+                                  np.where(pack[:, 0:3].numpy().any(axis=1),
+                                           pack[:, 3].numpy() + 1.0, 0.0))
