@@ -11,10 +11,14 @@ nonzero without a result line:
 3. each kernel against its plain PyTorch version on the same inputs, at the
    main paths' shapes and on a 4,096-ray fuzz wavefront:
    * forward kernels on the 524,288-ray chunk through the centre of the
-     720p frame: the find kernels must return the same prim ids and
-     occlusion flags (closest hit: or differ only on near ties), kernel
-     2's regrouping pass the same ray table and permutation; the
-     fused kernels must agree within atol 2e-5, rtol 1e-5;
+     720p frame: kernel 1 the same prim ids and t bits as its plain walk,
+     also at bounces 1 and 2 of the chunk and at bounce 0 of the train
+     step, each bounded by the tests its rays need (at bounce 0 beside
+     the bound from the listed tests), kernel 2 the same occlusion flags,
+     its regrouping pass the same ray table and permutation; the hit
+     record within atol 2e-5, rtol 1e-5, kernel 4 bit for bit, also on
+     the train step's wavefront and at two ragged widths, timed beside
+     its copy floor (``fused.stack_copy``);
    * backward kernels on the inputs of one train step (131,072 paths) and
      of the fuzz wavefront's backward: the hit-record and shade VJPs, with
      the cotangent scaled to unit size, within atol 2e-5, rtol 1e-4 of
@@ -276,6 +280,7 @@ def main(argv=None) -> int:
     vis_ok = integrator.scene_no_emissive_tris(scene)
 
     # ---- 3. kernels against their plain versions -----------------------
+    K1_WARP_RAYS = 32 * find.FIND_RAYS_PER_LANE   # rays of a kernel-1 warp
     fwd_wrappers = [(find, "find_closest"), (find, "any_regroup"),
                     (find, "find_any"),
                     (integrator, "hitrec_fused"),
@@ -296,9 +301,23 @@ def main(argv=None) -> int:
         step, state = train_step_fn()
         step(state, scene, camera, train_ids, train_tgt, rng.key(0, dev))
 
-    # the backward's last call is bounce 0's: the most live rays
-    main_inputs.update({k: v[-1] for k, v in capture_calls(
-        *zip(*bwd_wrappers), one_train_step).items()})
+    # kernel 1 at bounces 1 and 2 of the same chunk (the record's rows
+    # keep bounce 0)
+    later_bounces = {f"bounce {b}": v for b, v in enumerate(capture_calls(
+        [find], ["find_closest"], lambda: renderer.render_pixels(
+            scene, camera, ids, 0, base_key, background, width=W, height=H,
+            spb=spb, spp_total=spp, max_bounce=cfg.max_bounce,
+            last_bounce_vis=True))["find_closest"]) if b}
+    # the backward's last call is bounce 0's: the most live rays; the
+    # forward's first, bounce 0's (kernels 1 and 4 on the train wavefront)
+    train_calls = capture_calls(
+        *zip(*(bwd_wrappers + [(find, "find_closest"),
+                               (integrator, "shade_carry_fused")])),
+        one_train_step)
+    main_inputs.update({k: train_calls[k][-1] for _, k in bwd_wrappers})
+    train_inputs = {k: train_calls[k][0]
+                    for k in ("find_closest", "shade_carry_fused")}
+    del train_calls
 
     fz = np.random.default_rng(42)            # bench.py:123-128
     fo = torch.tensor(fz.normal(0, 3.0, (4096, 3)), dtype=torch.float32,
@@ -356,18 +375,16 @@ def main(argv=None) -> int:
         return (a - b).abs() <= 1e-3 * torch.minimum(a, b) + 1e-5
 
     def check_find_closest(inp):
-        lists, rays, tri, sph, n = inp
-        t_k, p_k = find.find_closest(lists, rays, tri, sph, n)
-        t_p, p_p = find.find_closest_plain(lists, rays, tri, sph, n)
-        dis = p_k != p_p
-        n_dis = int(dis.sum())
-        if n_dis and not bool(near_tie(t_k[dis], t_p[dis]).all()):
-            raise AssertionError(f"find_closest: {n_dis} prim ids differ "
-                                 f"beyond the near-tie rule ({FIND_TIE})")
-        same = ~dis & (p_k >= 0)
-        err = float((t_k[same] - t_p[same]).abs().max()) if same.any() else 0.0
-        return err, n_dis, f"{n_dis} of {p_k.numel()} prim ids differ " \
-                           f"(near ties), {int((p_k >= 0).sum())} hits"
+        t_k, p_k = find.find_closest(*inp)
+        t_p, p_p = find.find_streamed_plain(*inp)
+        t_dis = t_k.view(torch.int32) != t_p.view(torch.int32)
+        if not torch.equal(p_k, p_p) or bool(t_dis.any()):
+            raise AssertionError(
+                f"find_closest: {int((p_k != p_p).sum())} prim ids and "
+                f"{int(t_dis.sum())} t differ from the plain walk")
+        return 0.0, 0, f"prim ids and t bit-equal to the plain walk, " \
+                       f"{int((p_k >= 0).sum())} hits, " \
+                       f"{int(((p_k >= 0) & (p_k < T)).sum())} on triangles"
 
     def check_any_regroup(inp):
         got = find.any_regroup(*inp)
@@ -393,12 +410,15 @@ def main(argv=None) -> int:
                        f"occluded; {live} live rays regrouped into " \
                        f"{-(-live // find.RAY_BLOCK)} blocks"
 
-    def check_fused(kernel, plain):
+    def check_fused(kernel, plain, exact=False):
         def check(inp):
             got, want = kernel(*inp), plain(*inp)
             torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
             inexact = int((got.view(torch.int32) != want.view(torch.int32))
                           .sum())
+            if exact and inexact:
+                raise AssertionError(f"{inexact} values differ from the "
+                                     "plain version's bits")
             return float((got - want).abs().max()), inexact, \
                 f"{inexact} of {got.numel()} values not bit-equal"
         return check
@@ -482,44 +502,16 @@ def main(argv=None) -> int:
     def bytes_of(*tensors, out=()):
         return sum(t.numel() * t.element_size() for t in (*tensors, *out))
 
-    def find_pairs(lists, rays, tri, sph, n):
-        """(ray, triangle) tests kernel 1 makes on these inputs: the walk of
-        ``find_closest_plain``, counting each lane of a block for every
-        tile the block visits."""
-        RB, BIG = find.RAY_BLOCK, find._BIG
-        nc = tri.shape[0]
-        if n == 0 or nc == 0:
-            return 0
-        pairs = 0
-        for b0, b1 in find._block_chunks(rays.shape[0] // RB, tri, RB):
-            rb = rays[b0 * RB:b1 * RB]
-            bnd = find._sphere_tc(rb, sph).amin(dim=1).reshape(b1 - b0, RB)
-            rays_b = rb.reshape(b1 - b0, RB, -1)
-            lst = lists[b0:b1]
-            active = torch.ones(b1 - b0, dtype=torch.bool, device=rays.device)
-            for k in range(nc):
-                active &= (k < lst[:, 0]) \
-                    & (lst[:, 1 + nc + k] < find._worst_bits(bnd))
-                blk = active.nonzero().squeeze(1)
-                if blk.numel() == 0:
-                    break
-                t, valid = find._tile_t(tri[lst[blk, 1 + k].long()],
-                                        rays_b[blk])
-                pairs += t.numel()
-                tile_t = torch.where(valid, t, BIG).amin(dim=2)
-                bnd[blk] = torch.minimum(bnd[blk], tile_t)
-        return pairs
-
-    def walk_bound(closest, scene_of):
-        """Bound of kernels 8 (closest) and 2 from the tests these inputs
-        need (``checks.walk_counts``), with the executed and live counts
-        beside it. Bytes: of the worklists, each row's count and its live
-        entries (an id and an entry distance each); every other input and
-        the output whole."""
+    def walk_bound(closest, scene_of, warp_rays=checks.WALK_WARP_RAYS):
+        """Bound of kernels 1 and 8 (closest) and 2 from the tests these
+        inputs need (``checks.walk_counts``, warps of ``warp_rays`` rays),
+        with the executed, live and listed counts beside it. Bytes: of the
+        worklists, each row's count and its live entries (an id and an
+        entry distance each); every other input and the output whole."""
         def bound(inp):
             sc_ = scene_of(inp)
             c = checks.walk_counts(closest, inp, sc_.cluster_min,
-                                   sc_.cluster_max)
+                                   sc_.cluster_max, warp_rays)
             lists, rays = inp[0], inp[1]
             n_sph = inp[4].shape[0] if closest else 0
             ops = c["needed"] * OPS_PER_PAIR \
@@ -529,7 +521,8 @@ def main(argv=None) -> int:
             return list_bytes + out + bytes_of(
                 *(x for x in inp[1:] if hasattr(x, "shape"))), ops, \
                 f"{c['needed']} needed (ray, triangle) tests, " \
-                f"{c['live']} live, {c['executed']} executed"
+                f"{c['live']} live, {c['executed']} executed, " \
+                f"{c['listed']} listed"
         return bound
 
     def regroup_bound(inp):
@@ -541,14 +534,6 @@ def main(argv=None) -> int:
             + Rpad * 4 * (9 + 1 + 2), \
             R * sph.shape[0] * OPS_PER_SPHERE_TEST, \
             f"{R} rays x {sph.shape[0]} sphere tests"
-
-    def find_bound(inp):
-        lists, rays, tri, sph, n = inp
-        pairs = find_pairs(*inp)
-        ops = pairs * OPS_PER_PAIR \
-            + rays.shape[0] * sph.shape[0] * OPS_PER_SPHERE_TEST
-        return bytes_of(lists, rays, tri, sph) + rays.shape[0] * 8, ops, \
-            f"{pairs} (ray, triangle) tests"
 
     def stack_bound(plain, inp, n_out_rows):
         stacks = [t for t in inp if hasattr(t, "shape")]
@@ -564,8 +549,8 @@ def main(argv=None) -> int:
 
     kernel_checks = {
         "find_closest": (check_find_closest, find.find_closest,
-                         find.find_closest_plain, find.FIND_CLOSEST,
-                         find_bound),
+                         find.find_streamed_plain, find.FIND_CLOSEST,
+                         walk_bound(True, lambda i: scene, K1_WARP_RAYS)),
         "any_regroup": (check_any_regroup, find.any_regroup,
                         find.any_regroup_plain, find.ANY_REGROUP,
                         regroup_bound),
@@ -576,7 +561,8 @@ def main(argv=None) -> int:
                          lambda i: stack_bound(fused.hitrec_math, i,
                                                fused.NHO)),
         "shade_carry_fused": (
-            check_fused(fused.shade_carry_fused, fused.shade_carry_math),
+            check_fused(fused.shade_carry_fused, fused.shade_carry_math,
+                        exact=True),
             fused.shade_carry_fused, fused.shade_carry_math, fused.SHADE,
             lambda i: stack_bound(fused.shade_carry_math, i, fused.NSO)),
         "hitrec_bwd": (
@@ -631,7 +617,7 @@ def main(argv=None) -> int:
                     replaces=handle.replaces.split(" ")[0], launches=None,
                     max_abs_err=err, mismatches=mismatches, ms=ms,
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=lib_ms, shape=shape, case=label)
+                    library_ms=lib_ms, shape=shape, case=label, work=work)
 
     records = {}
     for name, (check, kern, plain, handle, bound_of) in \
@@ -649,6 +635,66 @@ def main(argv=None) -> int:
                 records[name][label] = {k: rec[k] for k in (
                     "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}
+
+    # kernel 1 at bounces 1 and 2 of the chunk and at bounce 0 of the
+    # train step, each bounded by the tests its rays need; at bounce 0 also
+    # the bound from the listed tests (every lane of a block on every tile
+    # the block visits: what the first kernel 1 executed)
+    keys1 = ("case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+             "work")
+    k1 = records["find_closest"]
+    k1["bounces"] = [{k: k1[k] for k in keys1}]
+    for label, inp in (*later_bounces.items(),
+                       ("train bounce 0", train_inputs["find_closest"])):
+        rec = record("find_closest", find.FIND_CLOSEST, inp,
+                     check_find_closest, find.find_closest,
+                     find.find_streamed_plain,
+                     kernel_checks["find_closest"][4], label, 20, 3)
+        k1["bounces"].append({k: rec[k] for k in keys1})
+    inp = main_inputs["find_closest"]
+    listed = checks.walk_counts(True, inp, scene.cluster_min,
+                                scene.cluster_max)["listed"]
+    lists, rays, pack, boxes, sph, _ = inp
+    listed_ms = max(
+        bytes_of(lists, rays, pack, sph) / HBM_BYTES_PER_S * 1e3
+        + rays.shape[0] * 8 / HBM_BYTES_PER_S * 1e3,
+        (listed * OPS_PER_PAIR + rays.shape[0] * sph.shape[0]
+         * OPS_PER_SPHERE_TEST) / F32_FLOPS_PER_S * 1e3)
+    k1["listed_bound_ms"] = listed_ms
+    log(f"kernel find_closest [main]: bound {k1['bound_ms']:.4f} ms from "
+        f"the tests its rays need; {listed_ms:.4f} ms from the {listed} "
+        f"listed tests (every lane of a block on every tile it visits)")
+    del later_bounces
+
+    # kernel 4 beside its copy floor (the same stacks streamed by a kernel
+    # of the first shade kernel's shape that does no shading), on the
+    # train wavefront, and at two ragged widths: R - 3 (not a multiple of
+    # 4: no bulk copy) and a last tile of 4 rays
+    k4 = records["shade_carry_fused"]
+    sf, si = main_inputs["shade_carry_fused"]
+    copy = fused.stack_copy(sf, si)
+    if not torch.equal(copy.view(torch.int32),
+                       fused.stack_copy_plain(sf, si).view(torch.int32)):
+        raise AssertionError("stack_copy: kernel and plain version differ")
+    k4["copy_ms"] = time_ms(torch, lambda: fused.stack_copy(sf, si), 20)
+    log(f"kernel shade_carry_fused [main]: copy floor {k4['copy_ms']:.4f} ms "
+        f"(stack_copy, median, CUDA events), kernel {k4['ms']:.4f} ms, bound "
+        f"{k4['bound_ms']:.4f} ms ({smi})")
+    rec = record("shade_carry_fused", fused.SHADE,
+                 train_inputs["shade_carry_fused"], kernel_checks[
+                     "shade_carry_fused"][0], fused.shade_carry_fused,
+                 fused.shade_carry_math,
+                 lambda i: stack_bound(fused.shade_carry_math, i, fused.NSO),
+                 "train bounce 0")
+    k4["train"] = {k: rec[k] for k in keys1[:-1]}
+    R = sf.shape[1]
+    tile = fused.SHADE_TILE_RAYS
+    for label, r in (("R - 3", R - 3),
+                     ("last tile of 4", (R // tile - 1) * tile + 4)):
+        check_only("shade_carry_fused",
+                   (sf[:, :r].contiguous(), si[:, :r].contiguous()),
+                   kernel_checks["shade_carry_fused"][0], label)
+    del train_inputs, copy, sf, si
 
     # device time per call from the profiler's device events (CUDA events
     # around one call also count the host's launch gaps), early in the
@@ -1078,16 +1124,23 @@ def main(argv=None) -> int:
     k1_ms = time_ms(torch, lambda: find.find_closest(*cl), 10)
     k8_ms = time_ms(torch, lambda: find.find_streamed(*st), 10)
     tri_hits = int(((p_ref >= 0) & (p_ref < TB)).sum())
+    k1_tests = checks.walk_counts(True, cl, big.cluster_min,
+                                  big.cluster_max, K1_WARP_RAYS)
     k8_tests = checks.walk_counts(True, st, big.cluster_min,
                                   big.cluster_max)
+
+    def counts_text(c):
+        return ", ".join(f"{c[k]} {k}" for k in ("listed", "executed",
+                                                 "live", "needed"))
+
     log(f"65536 primary rays on {TB} triangles ({tri_hits} hit a triangle): "
-        f"find_closest (kernel 1, block-culled lists of {NCB} clusters) "
-        f"{k1_ms:.4f} ms, {find_pairs(*cl)} executed tests; find_streamed "
-        f"(kernel 8, {NCB} clusters) {k8_ms:.4f} ms, {k8_tests['executed']} "
-        f"executed, {k8_tests['live']} live, {k8_tests['needed']} needed "
-        f"tests (median of 10, CUDA events, {smi})")
+        f"find_closest (kernel 1, 128-ray block-culled lists of {NCB} "
+        f"clusters) {k1_ms:.4f} ms, {counts_text(k1_tests)} tests; "
+        f"find_streamed (kernel 8, 256-ray lists) {k8_ms:.4f} ms, "
+        f"{counts_text(k8_tests)} tests (median of 10, CUDA events, {smi})")
     records["find_streamed"]["primary_65536"] = dict(
-        find_streamed_ms=k8_ms, find_closest_ms=k1_ms, **k8_tests)
+        find_streamed_ms=k8_ms, find_closest_ms=k1_ms,
+        find_closest_tests=k1_tests, **k8_tests)
     del ref, cl, st, o_r, d_r, t_r
 
     # 7.3 the full-width frame, counted
@@ -1362,7 +1415,7 @@ def main(argv=None) -> int:
     seen = {e[1] for e in ev} | set(xplane_rows)
     found = {fn: any(f"::{fn}(" in s or f"::{fn}<" in s for s in seen)
              for fn in ("find_closest_kernel", "hitrec_kernel",
-                        "shade_kernel", "hitrec_bwd_kernel",
+                        "shade_staged_kernel", "hitrec_bwd_kernel",
                         "shade_bwd_kernel", "chunk_reduce_kernel",
                         "window_combine_kernel", "slice_sum_kernel",
                         "place_kernel")}
@@ -1413,7 +1466,8 @@ def main(argv=None) -> int:
             f"written to {args.profile}")
 
     if sorted(r["source"] + r["replaces"] for r in records.values()) != \
-            sorted(k.source + k.replaces.split(" ")[0] for k in _cuda.KERNELS):
+            sorted(k.source + k.replaces.split(" ")[0] for k in _cuda.KERNELS
+                   if k.replaces):
         raise AssertionError("the kernels' record does not list every "
                              "kernel of the library once")
     log(json.dumps({"kernels": list(records.values())}))

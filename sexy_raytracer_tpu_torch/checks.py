@@ -10,10 +10,10 @@ kernel returning zeros would pass: callers scale the cotangent to unit
 size first (``unit_cotangent``, the VJP is linear in it) and show that the
 check rejects a wrong kernel on those lanes (``vjp_check_power``).
 
-Kernels 8 and 2 walk cluster tiles (``ops/find._lane_walk``);
-``walk_counts`` counts the (ray, triangle) tests of a call three ways
-(executed, live, needed), and ``hard_wavefronts`` makes the wavefronts
-that stress the walk.
+Kernels 1, 8 and 2 walk cluster tiles (``ops/find._lane_walk``);
+``walk_counts`` counts the (ray, triangle) tests of a call four ways
+(listed, executed, live, needed), and ``hard_wavefronts`` and
+``resident_wavefronts`` make the wavefronts that stress the walk.
 """
 
 from __future__ import annotations
@@ -122,7 +122,8 @@ def vjp_check_power(got, want, ill=None):
 # ---------------------------------------------------------------------------
 
 _BIG = 3.0e38
-# rays of one warp of the walk kernels: 32 lanes of two rays
+# rays of one warp of kernels 8 and 2: 32 lanes of two rays (kernel 1's
+# warps hold 32 * find.FIND_RAYS_PER_LANE)
 WALK_WARP_RAYS = 64
 
 
@@ -167,12 +168,17 @@ def needed_tests(rays, state, cmin, cmax, n_tris, ck):
     return int(total)
 
 
-def walk_counts(closest, args, cmin, cmax):
-    """The (ray, triangle) tests of a call of kernel 8 (``closest``:
-    ``find_streamed``'s arguments) or kernel 2 (``find_any``'s), by the
-    walk of ``ops/find._lane_walk`` -> {executed, live, needed}:
+def walk_counts(closest, args, cmin, cmax, warp_rays=WALK_WARP_RAYS):
+    """The (ray, triangle) tests of a call of a walk kernel, 1 or 8
+    (``closest``: ``find_closest``'s or ``find_streamed``'s arguments) or
+    2 (``find_any``'s), by the walk of ``ops/find._lane_walk`` ->
+    {listed, executed, live, needed}:
 
-    * executed: the rays of every warp (``WALK_WARP_RAYS``) that runs the
+    * listed: every ray of a block on every tile the block visits before
+      its block-wide early out, times the tile's triangles: what the
+      worklists alone ask for, without the per-ray test (the tests the
+      first resident kernel 1 executed);
+    * executed: the rays of every warp (``warp_rays`` rays) that runs the
       test loop on a tile, times the tile's triangles;
     * live: the rays whose exact slab test (``_slab``, the cluster's own
       box) enters the tile's cluster before their current best t (or
@@ -188,11 +194,11 @@ def walk_counts(closest, args, cmin, cmax):
         lists, rays, _, pack, boxes, n_tris = args
         state = rays[:, 8].clone()
     bound = state.clone()
-    ck = pack.shape[2]
+    ck = pack.shape[1]
     nb = lists.shape[0]
     RB = rays.shape[0] // nb
     nc = (lists.shape[1] - 1) // 2
-    executed = live = 0
+    listed = executed = live = 0
     for b0, b1 in find._block_chunks(nb, pack, RB):
         st = state[b0 * RB:b1 * RB].view(b1 - b0, RB)
         rays_b = rays[b0 * RB:b1 * RB].reshape(b1 - b0, RB, -1)
@@ -204,6 +210,7 @@ def walk_counts(closest, args, cmin, cmax):
             blk = active.nonzero().squeeze(1)
             if blk.numel() == 0:
                 break
+            listed += blk.numel() * RB * ck
             c = lst[blk, 1 + k].long()
             s = st[blk]
             rb = rays_b[blk]
@@ -212,8 +219,8 @@ def walk_counts(closest, args, cmin, cmax):
             live += int((hit & (t_near < s) & (s > 0.0)).sum()) * ck
             tested = (s.view(torch.int32) > lst[blk, 1 + nc + k][:, None]) \
                 & find._lane_enters(rb, boxes[c], s)
-            warps = tested.reshape(blk.numel(), -1, WALK_WARP_RAYS).any(dim=2)
-            executed += int(warps.sum()) * WALK_WARP_RAYS * ck
+            warps = tested.reshape(blk.numel(), -1, warp_rays).any(dim=2)
+            executed += int(warps.sum()) * warp_rays * ck
             t, valid = find._tile_t(pack[c], rb)
             if closest:
                 tile_t = torch.where(valid, t, _BIG).amin(dim=2)
@@ -221,7 +228,7 @@ def walk_counts(closest, args, cmin, cmax):
             else:
                 occ = (valid & (t < s[..., None])).any(dim=2)
                 st[blk] = torch.where(tested & occ, -_BIG, s)
-    return dict(executed=executed, live=live,
+    return dict(listed=listed, executed=executed, live=live,
                 needed=needed_tests(rays, state if closest else bound, cmin,
                                     cmax, n_tris, ck))
 
@@ -293,3 +300,60 @@ def hard_wavefronts(scene, n=8192, seed=11):
     waves["ties"] = (src, dt, np.zeros(n), t_min, np.full(n, _BIG))
     return {k: tuple(torch.tensor(x, dtype=torch.float32, device=dev)
                      for x in v) for k, v in waves.items()}
+
+
+def resident_wavefronts(scene, n=2048, seed=17):
+    """Wavefronts that stress kernel 1's walk on a resident scene, as
+    {name: (org, dir, time, t_min)} float32 numpy arrays (the tests hand
+    the same rays to the JAX package), around the scene's triangles:
+
+    * ``ties``: ``hard_wavefronts``'s rays through vertices and edges that
+      clusters share;
+    * ``per-ray t_min``: rays from around the mesh, t_min in [1e-3, 3);
+    * ``dead lanes``: the same with 30% of the lanes dead (t_min 3e38)
+      and rays 256-383 all dead: a whole block of nothing to do;
+    * ``zero components``: rays at the mesh along an axis or in an axis
+      plane, one or two direction components exactly 0;
+    * ``inside boxes``: rays from the centres of the clusters' boxes, in
+      every direction.
+    """
+    r = np.random.default_rng(seed)
+    v = scene.tri_v0.cpu().numpy().astype(np.float64)
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    mid, ext = 0.5 * (lo + hi), 0.5 * (hi - lo) + 0.5
+
+    def unit(d):
+        return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    org = mid + r.uniform(-3.0, 3.0, (n, 3)) * ext
+    d = unit(mid + r.uniform(-1.0, 1.0, (n, 3)) * ext - org)
+    time = r.uniform(0, 1, n)
+    t_min = r.uniform(1e-3, 3.0, n)
+    dead = r.random(n) < 0.3
+    dead[256:384] = True
+    # along an axis, or in an axis plane, from outside the mesh's box
+    axis = r.integers(0, 3, n)
+    dz = np.zeros((n, 3))
+    dz[np.arange(n), axis] = np.where(r.random(n) < 0.5, 1.0, -1.0)
+    plane = r.random(n) < 0.5
+    other = (axis + 1) % 3
+    dz[plane, other[plane]] = r.uniform(-1.0, 1.0, plane.sum())
+    dz = unit(dz)
+    oz = mid + r.uniform(-0.8, 0.8, (n, 3)) * ext - 2.5 * dz * ext.max()
+    cmin = scene.cluster_min.cpu().numpy().astype(np.float64)
+    cmax = scene.cluster_max.cpu().numpy().astype(np.float64)
+    centre = 0.5 * (cmin + cmax)[r.integers(0, max(len(cmin), 1), n)] \
+        if len(cmin) else org
+    waves = {
+        "per-ray t_min": (org, d, time, t_min),
+        "dead lanes": (org, d, time, np.where(dead, _BIG, 1e-3)),
+        "zero components": (oz, dz, time, np.full(n, 1e-3)),
+        "inside boxes": (centre, unit(r.normal(size=(n, 3))), time,
+                         np.full(n, 1e-3)),
+    }
+    if len(v):
+        o_t, d_t, tm_t, tmin_t, _ = hard_wavefronts(scene, n, seed)["ties"]
+        waves["ties"] = tuple(x.cpu().numpy() for x in (o_t, d_t, tm_t,
+                                                        tmin_t))
+    return {k: tuple(np.asarray(x, np.float32) for x in w)
+            for k, w in waves.items()}

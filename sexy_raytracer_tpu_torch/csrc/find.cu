@@ -1,5 +1,5 @@
-// Ray queries for Hopper: cluster-culled closest hit and any hit, the
-// streamed big-scene closest hit, and the brute-force triangle search.
+// Ray queries for Hopper: the closest hit and the any hit over culled
+// cluster worklists (one cluster walk), and the brute-force triangle search.
 //
 // Replaces the TPU kernels _find_kernel (sexy_raytracer_tpu/ops/pallas_find.py:170),
 // _occluded_kernel (pallas_find.py:681), _find_streamed_kernel
@@ -7,25 +7,34 @@
 // are documented in sexy_raytracer_tpu_torch/ops/find.py and ops/brute.py;
 // the plain PyTorch versions there are the specification.
 //
-// The resident closest hit (find_closest_kernel) runs one block of
-// RAY_BLOCK threads per worklist row, one thread per ray; the block stages
-// each active cluster's [16, CK] plane/edge tile in shared memory and stops
-// its worklist early, block-wide, once no remaining cluster's entry
-// distance lies below any lane's best t (__syncthreads_or on the
-// order-preserving int bits the worklist carries).
+// The resident closest hit (kernel 1, 128-ray blocks over the per-ray
+// cull's lists), the streamed closest hit (kernel 8, 256-ray blocks over the
+// interval cull's lists) and the any hit (kernel 2) run one cluster walk,
+// below. What bounds them is the test loop (~37 float32 operations per
+// ray-triangle test, built without FMA) times the tests the walk makes, and
+// the latency of that loop's chain of dependent operations. The first
+// ports tested every lane of a block on every tile the block visited, with
+// one scalar load per plane/edge value and test: kernel 1 listed 3.3x and
+// 16x the tests its rays need at bounces 1 and 2 of the frame, kernel 8
+// 830x at the big frame's bounce 1. The walk tests a tile for a ray only
+// where the ray's own slab test enters the cluster's padded box before its
+// best t, skips what no ray of a warp needs, reads a triangle as four
+// 16-byte words, and keeps the tiles coming through a ring of shared-memory
+// stages that the copy engine fills, one bulk copy a tile. Kernels 8 and 2
+// give each lane two rays, so that one triangle read serves two tests;
+// kernel 1 gives each lane one ray and a 128-ray block four consumer warps
+// and a two-stage ring, so that more warps hide the loop's latency (on the
+// H100 that beat two rays a lane by 16-30% and 256-ray blocks at every
+// bounce, PERF.md).
 //
-// The streamed closest hit and the any hit (find_streamed_kernel,
-// find_any_kernel) share the cluster walk below. What bounds them is the
-// test loop (~37 float32 operations per ray-triangle test, built without
-// FMA) times the tests the walk makes, and the shared-memory loads that
-// feed it: the first port ran 512-ray blocks over 16-cluster units with
-// one scalar load per plane/edge value and test, and tested every lane of
-// a block on every tile it visited (153 G tests for a bounce-1 chunk of
-// the big frame, whose rays need 0.18 G). The walk tests a tile for a ray
-// only where the ray's own slab test enters the cluster's box before its
-// best t, skips what no ray of a warp needs, gives each lane two rays so
-// that one 64-byte triangle read serves two tests, and keeps the tiles
-// coming through a three-stage cp.async ring with mbarriers.
+// Kernel 1 on the walk returns what the first kernel 1 returned: it visits
+// the same tiles in the same order, and a ray skips a tile only where its
+// best t lies at or below the block's entry distance into the (unpadded)
+// cluster box, which the first kernel's block-wide early out also obeyed
+// once every lane was there, or where the ray enters the padded box at or
+// beyond its best t, where no hit in the box can be strictly nearer. What
+// can differ is a hit within float32 rounding of a box face and of the
+// best t at once: a near tie.
 //
 // Kernel 2 takes the live rays only, regrouped into dense blocks: a pass
 // before the cull (srt_any_regroup) tests the occluder spheres and moves
@@ -37,6 +46,8 @@
 // the same prim ids and t bits as its plain version.
 
 #include <cuda_runtime.h>
+
+#include "pipeline.cuh"
 
 namespace {
 
@@ -50,16 +61,6 @@ constexpr float EPS = 1.1920928955078125e-07f;  // FLT_EPSILON
 struct Ray {
   float ox, oy, oz, dx, dy, dz, tm, t_min;
 };
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays, int r,
-                                        int cols) {
-  const float* p = rays + (size_t)r * cols;
-  Ray ray;
-  ray.ox = p[0]; ray.oy = p[1]; ray.oz = p[2];
-  ray.dx = p[3]; ray.dy = p[4]; ray.dz = p[5];
-  ray.tm = p[6]; ray.t_min = p[7];
-  return ray;
-}
 
 // Nearest valid root of sphere row s (base xyz, delta xyz, radius, valid),
 // else BIG (pallas_find.py:94-129).
@@ -84,95 +85,17 @@ __device__ __forceinline__ float sphere_tc(const float* __restrict__ s,
   return ok0 ? root0 : (ok1 ? root1 : BIG);
 }
 
-// Triangle j of a shared-memory tile: t, and whether the hit is valid
-// (pallas_find.py:136-157).
-__device__ __forceinline__ bool tri_hit(const float* tile, int ck, int j,
-                                        const Ray& ray, float* t_out) {
-  const float* r = tile + j;
-  float ndir = ray.dx * r[0] + ray.dy * r[ck] + ray.dz * r[2 * ck];
-  float a_n = ray.ox * r[0] + ray.oy * r[ck] + ray.oz * r[2 * ck] + r[3 * ck];
-  bool plane_ok = ndir <= -EPS;
-  float t = -a_n / (plane_ok ? ndir : -1.0f);
-  float px = ray.ox + t * ray.dx;
-  float py = ray.oy + t * ray.dy;
-  float pz = ray.oz + t * ray.dz;
-  float e0 = r[4 * ck] * px + r[5 * ck] * py + r[6 * ck] * pz - r[7 * ck];
-  float e1 = r[8 * ck] * px + r[9 * ck] * py + r[10 * ck] * pz - r[11 * ck];
-  float e2 = r[12 * ck] * px + r[13 * ck] * py + r[14 * ck] * pz - r[15 * ck];
-  *t_out = t;
-  return plane_ok && (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f) &&
-         (t >= ray.t_min);
-}
-
-// Copy cluster c's [16, ck] tile into shared memory (ck is a multiple of 4).
-__device__ __forceinline__ void load_tile(float* tile,
-                                          const float* __restrict__ tri_pack,
-                                          int c, int ck) {
-  const float4* src =
-      reinterpret_cast<const float4*>(tri_pack + (size_t)c * 16 * ck);
-  float4* dst = reinterpret_cast<float4*>(tile);
-  for (int i = threadIdx.x; i < 4 * ck; i += blockDim.x) dst[i] = src[i];
-}
-
-__global__ void __launch_bounds__(RAY_BLOCK)
-find_closest_kernel(const int* __restrict__ lists, int list_stride,
-                    const float* __restrict__ rays,
-                    const float* __restrict__ tri_pack, int n_clusters, int ck,
-                    const float* __restrict__ sph_pack, int n_sph_pad,
-                    int n_tris, float* __restrict__ out_t,
-                    int* __restrict__ out_i) {
-  __shared__ __align__(16) float tile[16 * MAX_CK];
-  const int b = blockIdx.x;
-  const int r = b * RAY_BLOCK + threadIdx.x;
-  const Ray ray = load_ray(rays, r, 8);
-  const float a = ray.dx * ray.dx + ray.dy * ray.dy + ray.dz * ray.dz;
-
-  // spheres: the lowest index among the nearest roots
-  float best_t = BIG;
-  int best_s = 0;
-  for (int s = 0; s < n_sph_pad; ++s) {
-    float tc = sphere_tc(sph_pack + 8 * s, ray, a);
-    if (tc < best_t) { best_t = tc; best_s = s; }
-  }
-  int best_i = best_t < BIG ? n_tris + best_s : -1;
-
-  if (n_tris > 0 && n_clusters > 0) {
-    const int* row = lists + (size_t)b * list_stride;
-    const int count = row[0];
-    for (int k = 0; k < count; ++k) {
-      // early out: continue while some lane's best t lies beyond this
-      // cluster's entry distance (barrier: the last tile is consumed)
-      if (!__syncthreads_or(__float_as_int(best_t) > row[1 + n_clusters + k]))
-        break;
-      const int c = row[1 + k];
-      load_tile(tile, tri_pack, c, ck);
-      __syncthreads();
-      // strict '<' in lane order: the lowest id wins a tie in a tile,
-      // the earlier tile wins a tie across tiles
-      for (int j = 0; j < ck; ++j) {
-        float t;
-        if (tri_hit(tile, ck, j, ray, &t) && t < best_t) {
-          best_t = t;
-          best_i = c * ck + j;
-        }
-      }
-    }
-  }
-  out_t[r] = best_t;
-  out_i[r] = best_t < BIG ? best_i : -1;
-}
-
-// --- the cluster walk of kernels 8 and 2 -------------------------------------
+// --- the cluster walk of kernels 1, 8 and 2 ---------------------------------
 //
-// One block per worklist row of CW * 32 * RPT rays: CW consumer warps, each
-// lane holding RPT rays in registers, and one producer warp. The row lists
+// One block per worklist row of CW * 32 * R rays: CW consumer warps, each
+// lane holding R rays in registers, and one producer warp. The row lists
 // 256-triangle clusters front to back by block-min entry distance. The
-// producer copies cluster tiles into a ring of WALK_STAGES shared-memory
-// stages with 4-byte cp.async, transposed so that triangle j's 16 floats
-// (n d | q0 c0 | q1 c1 | q2 c2) are four float4 words, and completes a
-// stage's "full" mbarrier; each consumer warp waits on it, tests, and
-// releases the stage on its "empty" mbarrier. Warps do not wait for each
-// other except through the ring.
+// triangle pack is [NC, CK, 16], a triangle's 16 floats (n d | q0 c0 | q1
+// c1 | q2 c2) four float4 words; one lane of the producer warp copies a
+// cluster's 16 KB tile into a ring of STAGES shared-memory stages with one
+// bulk copy, whose bytes complete the stage's "full" mbarrier; each consumer
+// warp waits on it, tests, and releases the stage on its "empty" mbarrier.
+// Warps do not wait for each other except through the ring.
 //
 // At every tile a ray is live when its best t (its any-hit bound) lies
 // beyond the tile's entry distance and its own slab test enters the
@@ -186,59 +109,17 @@ find_closest_kernel(const int* __restrict__ lists, int list_stride,
 // ray faces (a warp vote on the plane test), and an any-hit ray that finds
 // an occluder stops being live (a predicate, not a break).
 
+// stages of the ring and rays a consumer lane: kernels 8 and 2 run three
+// stages and two rays a lane; kernel 1 two stages and one ray a lane
 constexpr int WALK_STAGES = 3;
-constexpr int RPT = 2;                 // rays per consumer lane
-// consumer warps of the any-hit and the streamed kernels' blocks
+constexpr int RPT = 2;
+constexpr int CLOSEST_STAGES = 2;
+constexpr int CLOSEST_RPT = 1;
+// consumer warps of the 128-ray blocks (kernels 2 and 1) and of kernel 8's
 constexpr int ANY_WARPS = RAY_BLOCK / (32 * RPT);
+constexpr int CLOSEST_WARPS = RAY_BLOCK / (32 * CLOSEST_RPT);
 constexpr int STREAM_WARPS = 4;
 constexpr unsigned FULL_MASK = 0xffffffffu;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem)
-               : "memory");
-}
-
-// the barrier's arrival of this thread once its cp.asyncs have landed
-__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
 
 struct LaneRay {
   float o[3], d[3], inv[3], t_min;
@@ -277,44 +158,41 @@ __device__ __forceinline__ bool lane_enters(const LaneRay& r,
   return (t_far > t_near) && (t_near < best);
 }
 
-// Producer warp: tiles 0 .. count-1 of `row` into the ring, stopping where
-// every consumer warp is done (then it completes that stage's full barrier
-// with no data and leaves `stop` for the consumers to read).
 __device__ __forceinline__ bool marked(const unsigned* need, int k) {
   return (need[k >> 5] >> (k & 31)) & 1u;
 }
 
+// Producer lane: the marked tiles of `row` into the ring, one bulk copy
+// each, stopping where every consumer warp is done (then it completes that
+// stage's full barrier with no data and leaves `stop` for the consumers).
+template <int STAGES>
 __device__ __forceinline__ void walk_produce(
     const int* row, int count, const unsigned* need,
     const float* __restrict__ tri_pack, int ck, float* stages,
     unsigned long long* full, unsigned long long* empty,
     volatile int* live_warps, volatile int* stop) {
-  const int lane = threadIdx.x & 31;
+  const unsigned bytes = 16u * ck * sizeof(float);
   for (int k = 0, i = 0; k < count; ++k) {
     if (!marked(need, k)) continue;
-    // the i-th copied tile goes to stage i % WALK_STAGES
-    const int s = i % WALK_STAGES;
-    const unsigned ph = (i / WALK_STAGES) & 1;
-    if (i >= WALK_STAGES) mbar_wait(&empty[s], ph ^ 1);
+    // the i-th copied tile goes to stage i % STAGES
+    const int s = i % STAGES;
+    const unsigned ph = (i / STAGES) & 1;
+    if (i >= STAGES) mbar_wait(&empty[s], ph ^ 1);
     if (*live_warps == 0) {
-      if (lane == 0) *stop = i;
-      __syncwarp();
+      *stop = i;
       mbar_arrive(&full[s]);
       return;
     }
-    // smem word w = 32 n + lane holds tile[i][j], i = lane % 16,
-    // j = 2 n + lane / 16: element (i, j) lands at j * 16 + i
-    const float* src = tri_pack + (size_t)row[1 + k] * 16 * ck +
-                       (size_t)(lane & 15) * ck + (lane >> 4);
-    float* dst = stages + (size_t)s * 16 * ck + lane;
-    for (int n = 0; n < ck / 2; ++n) cp_async4(dst + 32 * n, src + 2 * n);
-    cp_async_arrive(&full[s]);
+    mbar_arrive_expect_tx(&full[s], bytes);
+    bulk_load(stages + (size_t)s * 16 * ck,
+              tri_pack + (size_t)row[1 + k] * 16 * ck, bytes, &full[s]);
     ++i;
   }
 }
 
 // Consumer warps, before the walk: mark the list entries that some ray of
-// the warp is live for at its first best t.
+// the warp is live for at its first best t (R rays a lane).
+template <int R>
 __device__ __forceinline__ void walk_mark(const int* row, int count,
                                           int n_clusters,
                                           const float* __restrict__ boxes,
@@ -328,7 +206,7 @@ __device__ __forceinline__ void walk_mark(const int* row, int count,
     const float4 b0 = __ldg(b4), b1 = __ldg(b4 + 1);
     const float box[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
     bool live = false;
-    for (int q = 0; q < RPT; ++q)
+    for (int q = 0; q < R; ++q)
       live |= __float_as_int(best[q]) > entry &&
               lane_enters(ray[q], box, best[q]);
     if (__any_sync(FULL_MASK, live) && lane == 0)
@@ -336,9 +214,9 @@ __device__ __forceinline__ void walk_mark(const int* row, int count,
   }
 }
 
-// Consumer warp: RPT rays a lane. best[] holds each ray's best t (ANY: its
+// Consumer warp: R rays a lane. best[] holds each ray's best t (ANY: its
 // bound, negative once resolved), besti[] its prim id (closest hit).
-template <bool ANY>
+template <bool ANY, int STAGES, int R>
 __device__ __forceinline__ void walk_consume(
     const int* row, int count, const unsigned* need, int n_clusters, int ck,
     const float* __restrict__ boxes, const float* stages,
@@ -349,13 +227,13 @@ __device__ __forceinline__ void walk_consume(
   bool done = false;
   for (int k = 0, i = 0; k < count; ++k) {
     if (!marked(need, k)) continue;
-    const int s = i % WALK_STAGES;
-    mbar_wait(&full[s], (i / WALK_STAGES) & 1);
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
     if (*stop == i) break;
     if (!done) {
       const int entry = row[1 + n_clusters + k];
-      bool cand[RPT], any_cand = false;
-      for (int q = 0; q < RPT; ++q) {
+      bool cand[R], any_cand = false;
+      for (int q = 0; q < R; ++q) {
         cand[q] = __float_as_int(best[q]) > entry;
         any_cand |= cand[q];
       }
@@ -370,8 +248,8 @@ __device__ __forceinline__ void walk_consume(
             __ldg(reinterpret_cast<const float4*>(boxes) + 2 * c + 1);
         box[0] = b0.x; box[1] = b0.y; box[2] = b0.z; box[3] = b0.w;
         box[4] = b1.x; box[5] = b1.y; box[6] = b1.z; box[7] = b1.w;
-        bool live[RPT], any_live = false;
-        for (int q = 0; q < RPT; ++q) {
+        bool live[R], any_live = false;
+        for (int q = 0; q < R; ++q) {
           live[q] = cand[q] && lane_enters(ray[q], box, best[q]);
           any_live |= live[q];
         }
@@ -383,15 +261,15 @@ __device__ __forceinline__ void walk_consume(
           for (int j = 0; j < ck; ++j) {
             const float4 nd = tile[4 * j], q0 = tile[4 * j + 1],
                          q1 = tile[4 * j + 2], q2 = tile[4 * j + 3];
-            float ndir[RPT];
+            float ndir[R];
             bool facing = false;
-            for (int q = 0; q < RPT; ++q) {
+            for (int q = 0; q < R; ++q) {
               ndir[q] = ray[q].d[0] * nd.x + ray[q].d[1] * nd.y +
                         ray[q].d[2] * nd.z;
               facing |= live[q] && (ndir[q] <= -EPS);
             }
             if (!__any_sync(FULL_MASK, facing)) continue;
-            for (int q = 0; q < RPT; ++q) {
+            for (int q = 0; q < R; ++q) {
               const LaneRay& r = ray[q];
               const float a_n =
                   r.o[0] * nd.x + r.o[1] * nd.y + r.o[2] * nd.z + nd.w;
@@ -420,7 +298,7 @@ __device__ __forceinline__ void walk_consume(
             }
             if (ANY) {
               bool still = false;
-              for (int q = 0; q < RPT; ++q) still |= live[q];
+              for (int q = 0; q < R; ++q) still |= live[q];
               if (!__any_sync(FULL_MASK, still)) break;
             }
           }
@@ -443,22 +321,24 @@ struct WalkShared {
   unsigned* need;  // a bit per list entry: copy this tile
 };
 
+template <int STAGES>
 __device__ __forceinline__ WalkShared walk_shared(float* smem, int ck,
                                                   int consumers,
                                                   int n_clusters) {
   WalkShared w;
   w.stages = smem;
   w.full = reinterpret_cast<unsigned long long*>(
-      smem + (size_t)WALK_STAGES * 16 * ck);
-  w.empty = w.full + WALK_STAGES;
-  w.live_warps = reinterpret_cast<int*>(w.empty + WALK_STAGES);
+      smem + (size_t)STAGES * 16 * ck);
+  w.empty = w.full + STAGES;
+  w.live_warps = reinterpret_cast<int*>(w.empty + STAGES);
   w.stop = w.live_warps + 1;
   w.need = reinterpret_cast<unsigned*>(w.stop + 1);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < WALK_STAGES; ++s) {
-      mbar_init(&w.full[s], 32);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&w.full[s], 1);
       mbar_init(&w.empty[s], consumers);
     }
+    mbar_init_fence();
     *w.live_warps = consumers;
     *w.stop = -1;
   }
@@ -468,25 +348,27 @@ __device__ __forceinline__ WalkShared walk_shared(float* smem, int ck,
   return w;
 }
 
-template <int CW>
+// The closest hit, CW consumer warps of R rays a lane: kernel 1 (CW = 4,
+// R = 1, two stages) and kernel 8 (CW = 4, R = 2, three stages).
+template <int CW, int STAGES, int R>
 __global__ void __launch_bounds__((CW + 1) * 32)
-find_streamed_kernel(const int* __restrict__ lists, int list_stride,
-                     const float* __restrict__ rays,
-                     const float* __restrict__ tri_pack, int n_clusters,
-                     int ck, const float* __restrict__ boxes,
-                     const float* __restrict__ sph_pack, int n_sph_pad,
-                     int n_tris, float* __restrict__ out_t,
-                     int* __restrict__ out_i) {
-  extern __shared__ __align__(16) float smem[];
-  const WalkShared w = walk_shared(smem, ck, CW, n_clusters);
+find_closest_kernel(const int* __restrict__ lists, int list_stride,
+                    const float* __restrict__ rays,
+                    const float* __restrict__ tri_pack, int n_clusters,
+                    int ck, const float* __restrict__ boxes,
+                    const float* __restrict__ sph_pack, int n_sph_pad,
+                    int n_tris, float* __restrict__ out_t,
+                    int* __restrict__ out_i) {
+  extern __shared__ __align__(128) float smem[];
+  const WalkShared w = walk_shared<STAGES>(smem, ck, CW, n_clusters);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int* row = lists + (size_t)blockIdx.x * list_stride;
   const int count = n_tris > 0 ? row[0] : 0;
-  LaneRay ray[RPT];
-  float best[RPT];
-  int besti[RPT], rid[RPT];
-  for (int q = 0; q < RPT && warp < CW; ++q) {
-    rid[q] = blockIdx.x * (CW * 32 * RPT) + warp * 32 * RPT + q * 32 + lane;
+  LaneRay ray[R];
+  float best[R];
+  int besti[R], rid[R];
+  for (int q = 0; q < R && warp < CW; ++q) {
+    rid[q] = blockIdx.x * (CW * 32 * R) + warp * 32 * R + q * 32 + lane;
     const float* p = rays + (size_t)rid[q] * 8;
     ray[q] = lane_ray(p);
     // spheres first (pallas_find.py:94-133): the lowest index among the
@@ -505,17 +387,19 @@ find_streamed_kernel(const int* __restrict__ lists, int list_stride,
     best[q] = bt;
     besti[q] = bt < BIG ? n_tris + bs : -1;
   }
-  if (warp < CW) walk_mark(row, count, n_clusters, boxes, ray, best, w.need);
+  if (warp < CW)
+    walk_mark<R>(row, count, n_clusters, boxes, ray, best, w.need);
   __syncthreads();
   if (warp == CW) {
-    walk_produce(row, count, w.need, tri_pack, ck, w.stages, w.full,
-                 w.empty, w.live_warps, w.stop);
+    if (lane == 0)
+      walk_produce<STAGES>(row, count, w.need, tri_pack, ck, w.stages, w.full,
+                           w.empty, w.live_warps, w.stop);
     return;
   }
-  walk_consume<false>(row, count, w.need, n_clusters, ck, boxes, w.stages,
-                      w.full, w.empty, w.live_warps, w.stop, ray, best,
-                      besti);
-  for (int q = 0; q < RPT; ++q) {
+  walk_consume<false, STAGES, R>(row, count, w.need, n_clusters, ck, boxes,
+                              w.stages, w.full, w.empty, w.live_warps, w.stop,
+                              ray, best, besti);
+  for (int q = 0; q < R; ++q) {
     out_t[rid[q]] = best[q];
     out_i[rid[q]] = best[q] < BIG ? besti[q] : -1;
   }
@@ -532,8 +416,8 @@ find_any_kernel(const int* __restrict__ lists, int list_stride,
                 const float* __restrict__ tri_pack, int n_clusters, int ck,
                 const float* __restrict__ boxes, int n_tris,
                 int* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const WalkShared w = walk_shared(smem, ck, CW, n_clusters);
+  extern __shared__ __align__(128) float smem[];
+  const WalkShared w = walk_shared<WALK_STAGES>(smem, ck, CW, n_clusters);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int* row = lists + (size_t)blockIdx.x * list_stride;
   // a block of resolved rays has an empty list and leaves at once
@@ -547,22 +431,25 @@ find_any_kernel(const int* __restrict__ lists, int list_stride,
     ray[q] = lane_ray(p);
     bound[q] = p[8];
   }
-  if (warp < CW) walk_mark(row, count, n_clusters, boxes, ray, bound, w.need);
+  if (warp < CW)
+    walk_mark<RPT>(row, count, n_clusters, boxes, ray, bound, w.need);
   __syncthreads();
   if (warp == CW) {
-    walk_produce(row, count, w.need, tri_pack, ck, w.stages, w.full,
-                 w.empty, w.live_warps, w.stop);
+    if (lane == 0)
+      walk_produce<WALK_STAGES>(row, count, w.need, tri_pack, ck, w.stages,
+                                w.full, w.empty, w.live_warps, w.stop);
     return;
   }
-  walk_consume<true>(row, count, w.need, n_clusters, ck, boxes, w.stages,
-                     w.full, w.empty, w.live_warps, w.stop, ray, bound,
-                     unused);
+  walk_consume<true, WALK_STAGES, RPT>(row, count, w.need, n_clusters, ck,
+                                       boxes, w.stages, w.full, w.empty,
+                                       w.live_warps, w.stop, ray, bound,
+                                       unused);
   for (int q = 0; q < RPT; ++q) out[perm[rid[q]]] = bound[q] < 0.0f ? 1 : 0;
 }
 
-size_t walk_smem_bytes(int ck, int n_clusters) {
-  return (size_t)WALK_STAGES * 16 * ck * sizeof(float) +
-         2 * WALK_STAGES * sizeof(unsigned long long) + 2 * sizeof(int) +
+size_t walk_smem_bytes(int stages, int ck, int n_clusters) {
+  return (size_t)stages * 16 * ck * sizeof(float) +
+         2 * stages * sizeof(unsigned long long) + 2 * sizeof(int) +
          (size_t)(n_clusters + 31) / 32 * sizeof(unsigned);
 }
 
@@ -574,6 +461,28 @@ cudaError_t walk_smem_limit(F kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Launch the closest-hit walk: CW consumer warps of R rays a lane, STAGES
+// stages.
+template <int CW, int STAGES, int R>
+cudaError_t launch_closest(const int* lists, int list_stride,
+                           const float* rays, const float* tri_pack,
+                           int n_clusters, int ck, const float* boxes,
+                           const float* sph_pack, int n_sph_pad, int n_tris,
+                           int n_blocks, float* out_t, int* out_i,
+                           cudaStream_t stream) {
+  const size_t smem = walk_smem_bytes(STAGES, ck, n_clusters);
+  cudaError_t err =
+      walk_smem_limit(find_closest_kernel<CW, STAGES, R>, smem);
+  if (err != cudaSuccess) return err;
+  if (n_blocks > 0) {
+    find_closest_kernel<CW, STAGES, R>
+        <<<n_blocks, (CW + 1) * 32, smem, stream>>>(
+        lists, list_stride, rays, tri_pack, n_clusters, ck, boxes, sph_pack,
+        n_sph_pad, n_tris, out_t, out_i);
+  }
+  return cudaGetLastError();
 }
 
 // --- kernel 2's regrouping pass ----------------------------------------------
@@ -772,19 +681,19 @@ const char* srt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Kernel 1: rows of 128 rays, four consumer warps of one ray a lane, a
+// two-stage ring.
 int srt_find_closest(const int* lists, int list_stride, const float* rays,
                      const float* tri_pack, int n_clusters, int ck,
-                     const float* sph_pack, int n_sph_pad, int n_tris,
-                     int ray_block, int n_blocks, float* out_t, int* out_i,
-                     void* stream) {
+                     const float* boxes, const float* sph_pack, int n_sph_pad,
+                     int n_tris, int ray_block, int n_blocks, float* out_t,
+                     int* out_i, void* stream) {
   if (ray_block != RAY_BLOCK || ck > MAX_CK || ck % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks > 0) {
-    find_closest_kernel<<<n_blocks, RAY_BLOCK, 0, (cudaStream_t)stream>>>(
-        lists, list_stride, rays, tri_pack, n_clusters, ck, sph_pack,
-        n_sph_pad, n_tris, out_t, out_i);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_closest<CLOSEST_WARPS, CLOSEST_STAGES, CLOSEST_RPT>(
+          lists, list_stride, rays, tri_pack, n_clusters, ck, boxes, sph_pack,
+          n_sph_pad, n_tris, n_blocks, out_t, out_i, (cudaStream_t)stream));
 }
 
 // Kernel 2 takes rows of 128 rays (two consumer warps), kernel 8 rows of
@@ -795,7 +704,7 @@ int srt_find_any(const int* lists, int list_stride, const float* rays,
                  int n_blocks, int* out, void* stream) {
   if (ray_block != RAY_BLOCK || ck > MAX_CK || ck % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = walk_smem_bytes(ck, n_clusters);
+  const size_t smem = walk_smem_bytes(WALK_STAGES, ck, n_clusters);
   cudaError_t err = walk_smem_limit(find_any_kernel<ANY_WARPS>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_blocks > 0) {
@@ -834,6 +743,7 @@ int srt_any_regroup(const float* org, const float* dir, const float* time,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel 8: rows of 256 rays, three stages.
 int srt_find_streamed(const int* lists, int list_stride, const float* rays,
                       const float* tri_pack, int n_clusters, int ck,
                       const float* boxes, const float* sph_pack,
@@ -841,17 +751,9 @@ int srt_find_streamed(const int* lists, int list_stride, const float* rays,
                       float* out_t, int* out_i, void* stream) {
   if (ray_block != STREAM_WARPS * 32 * RPT || ck > MAX_CK || ck % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = walk_smem_bytes(ck, n_clusters);
-  cudaError_t err =
-      walk_smem_limit(find_streamed_kernel<STREAM_WARPS>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_blocks > 0) {
-    find_streamed_kernel<STREAM_WARPS>
-        <<<n_blocks, (STREAM_WARPS + 1) * 32, smem, (cudaStream_t)stream>>>(
-            lists, list_stride, rays, tri_pack, n_clusters, ck, boxes,
-            sph_pack, n_sph_pad, n_tris, out_t, out_i);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_closest<STREAM_WARPS, WALK_STAGES, RPT>(
+      lists, list_stride, rays, tri_pack, n_clusters, ck, boxes, sph_pack,
+      n_sph_pad, n_tris, n_blocks, out_t, out_i, (cudaStream_t)stream));
 }
 
 int srt_tri_brute(const float* org4, const float* dir4, const float* w,

@@ -6,8 +6,20 @@
 // :271), _hitrec_bwd_kernel (fused.py:446) and _shade_bwd_kernel
 // (fused.py:505). The row maps (NHF/NHO, SF_*/NSI/NSO) are the JAX package's;
 // a stack is [K, R] row-major with rays contiguous, the TPU's [K, RB, 128]
-// flattened. One thread per ray: every row read and written is a coalesced
-// 4-byte access across a warp.
+// flattened. The hit record and the VJPs run one thread per ray: every row
+// read and written is a coalesced 4-byte access across a warp.
+//
+// Shading (kernel 4) is bound by device memory: 81 rows read and 16
+// written a ray against a few hundred float32 operations. One thread a ray
+// reaching 0.081 ms on the frame chunk, where a kernel that only streams
+// the same stacks in the same launch shape (stack_copy_kernel, the copy
+// floor) takes 0.068 and the bound is 0.061: at 94 registers a quarter of
+// the warps were resident, and each load waited in its ray's chain of sin,
+// exp2 and divides. shade_staged_kernel takes the loads out of that chain:
+// persistent blocks, a producer lane that bulk-copies a tile's row segments
+// into a ring of shared-memory stages (the copy engine, no registers), and
+// consumer threads that shade one ray each from shared memory while the
+// next tile lands; it runs at the copy floor (PERF.md).
 //
 // Forward. hit_fwd and shade_fwd are line-by-line transcriptions of the JAX
 // math, in the same evaluation order. The library is built with -fmad=false
@@ -18,10 +30,12 @@
 // Backward. The TPU kernels run jax.vjp inside the kernel body and save no
 // intermediates. The backward kernels here do the same by hand: each thread
 // re-runs hit_fwd / shade_fwd for its ray (the forward intermediates stay in
-// registers), then walks the adjoint in reverse. Bound: device memory, the
-// forward stack, the cotangent and the input cotangent streamed once
-// ((34 + 16 + 34) x 4 B and (75 + 6 + 16 + 75) x 4 B per ray) against a few
-// hundred flops. The adjoint keeps JAX's derivative conventions:
+// registers; shade_fwd reads its rows through a Plane, device or shared
+// memory, in the same order), then walks the adjoint in reverse. Bound:
+// device memory, the forward stack, the cotangent and the input cotangent
+// streamed once ((34 + 16 + 34) x 4 B and (75 + 6 + 16 + 75) x 4 B per
+// ray) against a few hundred flops. The adjoint keeps JAX's derivative
+// conventions:
 //   * a select sends its cotangent to the branch that was taken only, so the
 //     sphere solve on a triangle lane never leaks into the result;
 //   * jnp.maximum/minimum/clip split a tie half and half (dmaxn, dminn);
@@ -36,6 +50,10 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "pipeline.cuh"
+
 namespace {
 
 constexpr float EPS = 1.1920928955078125e-07f;  // FLT_EPSILON
@@ -43,7 +61,7 @@ constexpr double PI_D = 3.1415926535897932385;
 constexpr float PI_F = (float)PI_D;
 constexpr float LN2_F = 0.693147180559945309f;
 constexpr int MAT_PBR = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2, MAT_LIGHT = 3;
-constexpr int NHF = 34, NHO = 16, NSF = 75, NSO = 16;
+constexpr int NHF = 34, NHO = 16, NSF = 75, NSI = 6, NSO = 16;
 constexpr int GF = 27, PK = 57;  // shade-stack rows of gf[0] and pack[0]
 
 struct V3 {
@@ -156,13 +174,18 @@ __device__ __forceinline__ float vrefract_bwd(V3 uv, V3 n, float ratio, V3 g,
   return g_ratio;
 }
 
-struct Rows {
-  const float* __restrict__ p;
+// Row k, ray r of a [K, n] stack: device memory, or a stage of it in
+// shared memory
+template <typename T>
+struct Plane {
+  const T* __restrict__ p;
   int n;
-  __device__ __forceinline__ float operator()(int k, int r) const {
+  __device__ __forceinline__ T operator()(int k, int r) const {
     return p[(size_t)k * n + r];
   }
 };
+using Rows = Plane<float>;
+using IRows = Plane<int>;
 
 __device__ __forceinline__ V3 row3(const Rows& F, int k, int r) {
   return v3(F(k, r), F(k + 1, r), F(k + 2, r));
@@ -448,9 +471,8 @@ struct ShadeFwd {
   bool miss, takes, alive_next;
 };
 
-__device__ __forceinline__ ShadeFwd shade_fwd(const Rows& F,
-                                              const int* __restrict__ si,
-                                              int n, int r) {
+__device__ __forceinline__ ShadeFwd shade_fwd(const Rows& F, const IRows& I,
+                                              int r) {
   ShadeFwd s;
   s.org = row3(F, 0, r);
   s.dr = row3(F, 3, r);
@@ -469,8 +491,8 @@ __device__ __forceinline__ ShadeFwd shade_fwd(const Rows& F,
   s.rball = row3(F, 68, r);
   float runi = F(71, r);
   s.bg = row3(F, 72, r);
-  s.mtype = si[r]; s.ak = si[n + r]; s.nk = si[2 * n + r];
-  s.mk = si[3 * n + r]; s.rk = si[4 * n + r]; s.ek = si[5 * n + r];
+  s.mtype = I(0, r); s.ak = I(1, r); s.nk = I(2, r);
+  s.mk = I(3, r); s.rk = I(4, r); s.ek = I(5, r);
 
   s.base_rgb = v3(g(0), g(1), g(2));
   V3 albedo_c0 = v3(g(8), g(9), g(10));
@@ -591,24 +613,103 @@ __device__ __forceinline__ ShadeFwd shade_fwd(const Rows& F,
   return s;
 }
 
-// [NSF = 75, R] f32 + [NSI = 6, R] i32 -> [NSO = 16, R]
-__global__ void shade_kernel(const float* __restrict__ sf,
-                             const int* __restrict__ si, int n,
-                             float* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const ShadeFwd s = shade_fwd(Rows{sf, n}, si, n, r);
+// the carry update of one ray's shading: its [NSO] output column
+__device__ __forceinline__ void shade_out(const ShadeFwd& s, float* vals) {
   const V3 zero3 = v3(0.0f, 0.0f, 0.0f);
   V3 rad = vadd(s.rad, vwhere(s.miss, vmul(s.thr, s.bg), zero3));
   rad = vadd(rad, vwhere(s.takes, vmul(s.thr, s.emitted), zero3));
   V3 thr = vwhere(s.alive_next, vmul(s.thr, s.att), s.thr);
   V3 org = vwhere(s.alive_next, s.p, s.org);
   V3 dr = vwhere(s.alive_next, s.sdir, s.dr);
-  const float vals[NSO] = {org.x, org.y, org.z, dr.x, dr.y, dr.z,
-                           thr.x, thr.y, thr.z, rad.x, rad.y, rad.z,
-                           s.alive_next ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f};
+  const float v[NSO] = {org.x, org.y, org.z, dr.x, dr.y, dr.z,
+                        thr.x, thr.y, thr.z, rad.x, rad.y, rad.z,
+                        s.alive_next ? 1.0f : 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int kk = 0; kk < NSO; ++kk) out[(size_t)kk * n + r] = vals[kk];
+  for (int k = 0; k < NSO; ++k) vals[k] = v[k];
+}
+
+__device__ __forceinline__ void store_column(const float* vals, float* out,
+                                             int n, int r) {
+#pragma unroll
+  for (int k = 0; k < NSO; ++k) out[(size_t)k * n + r] = vals[k];
+}
+
+// Tiles of the staged shade kernel: SHADE_TR rays, SHADE_STAGES stages in
+// the ring (on the H100 tiles of 64 to 256 rays and two or three stages ran
+// within 5% of each other, PERF.md; 64 x 3 was the fastest)
+constexpr int SHADE_TR = 64;
+constexpr int SHADE_STAGES = 3;
+
+// [NSF = 75, R] f32 + [NSI = 6, R] i32 -> [NSO = 16, R], staged: persistent
+// blocks walk tiles of SHADE_TR rays; one lane of a producer warp copies a
+// tile's 75 f32 and 6 i32 row segments (SHADE_TR x 4 bytes each) into a
+// ring of SHADE_STAGES shared-memory stages with bulk copies whose bytes
+// complete the stage's "full" mbarrier, while the SHADE_TR consumer
+// threads shade the tile before, one ray each, from shared memory
+// (consecutive lanes read consecutive words of a row: no bank conflicts),
+// release the stage on its "empty" mbarrier and write their columns,
+// coalesced. A tile past the last whole one, and every tile where the
+// stacks' rows are not 16-byte aligned (R not a multiple of 4), is read by
+// the consumers straight from device memory: bulk_tiles counts the tiles
+// that go through the ring.
+__global__ void __launch_bounds__(SHADE_TR + 32)
+shade_staged_kernel(const float* __restrict__ sf, const int* __restrict__ si,
+                    int n, float* __restrict__ out, int n_tiles,
+                    int bulk_tiles) {
+  extern __shared__ __align__(128) float smem[];
+  // [SHADE_STAGES][NSF][SHADE_TR] f32 rows, then [SHADE_STAGES][NSI]
+  // [SHADE_TR] int rows
+  float* fs = smem;
+  int* is = reinterpret_cast<int*>(smem + SHADE_STAGES * NSF * SHADE_TR);
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      is + SHADE_STAGES * NSI * SHADE_TR);
+  unsigned long long* empty = full + SHADE_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SHADE_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], SHADE_TR / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= SHADE_TR) {
+    if (threadIdx.x == SHADE_TR) {
+      constexpr unsigned ROW = SHADE_TR * sizeof(float);
+      for (int t = blockIdx.x, i = 0; t < bulk_tiles; t += gridDim.x, ++i) {
+        const int s = i % SHADE_STAGES;
+        if (i >= SHADE_STAGES)
+          mbar_wait(&empty[s], ((i / SHADE_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], (NSF + NSI) * ROW);
+        const size_t r0 = (size_t)t * SHADE_TR;
+        for (int k = 0; k < NSF; ++k)
+          bulk_load(fs + ((size_t)s * NSF + k) * SHADE_TR,
+                    sf + (size_t)k * n + r0, ROW, &full[s]);
+        for (int k = 0; k < NSI; ++k)
+          bulk_load(is + ((size_t)s * NSI + k) * SHADE_TR,
+                    si + (size_t)k * n + r0, ROW, &full[s]);
+      }
+    }
+    return;
+  }
+  const int j = threadIdx.x;
+  float vals[NSO];
+  for (int t = blockIdx.x, i = 0; t < n_tiles; t += gridDim.x) {
+    const int r = t * SHADE_TR + j;
+    if (t < bulk_tiles) {
+      const int s = i % SHADE_STAGES;
+      mbar_wait(&full[s], (i / SHADE_STAGES) & 1);
+      shade_out(shade_fwd(Rows{fs + (size_t)s * NSF * SHADE_TR, SHADE_TR},
+                          IRows{is + (size_t)s * NSI * SHADE_TR, SHADE_TR}, j),
+                vals);
+      __syncwarp();
+      if ((j & 31) == 0) mbar_arrive(&empty[s]);
+      ++i;
+      store_column(vals, out, n, r);
+    } else if (r < n) {
+      shade_out(shade_fwd(Rows{sf, n}, IRows{si, n}, r), vals);
+      store_column(vals, out, n, r);
+    }
+  }
 }
 
 __device__ __forceinline__ void add3(float* d, int row, V3 v) {
@@ -625,7 +726,7 @@ __global__ void shade_bwd_kernel(const float* __restrict__ sf,
                                  float* __restrict__ dout) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
-  const ShadeFwd s = shade_fwd(Rows{sf, n}, si, n, r);
+  const ShadeFwd s = shade_fwd(Rows{sf, n}, IRows{si, n}, r);
   const Rows G{gout, n};
   const V3 z = v3(0.0f, 0.0f, 0.0f);
   float d[NSF];
@@ -800,6 +901,65 @@ constexpr int THREADS = 256;
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
+// Launch the staged shade kernel: as many persistent blocks as fit on the
+// card at once (found once per device), no more than there are tiles.
+cudaError_t launch_staged(const float* sf, const int* si, int n, float* out,
+                          cudaStream_t stream) {
+  constexpr size_t smem =
+      (size_t)SHADE_STAGES * (NSF + NSI) * SHADE_TR * sizeof(float) +
+      2 * SHADE_STAGES * sizeof(unsigned long long);
+  static int grid[64];  // per device; 0 until found
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (grid[dev] == 0) {
+    auto kernel = shade_staged_kernel;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int sms = 0, per_sm = 0;
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          SHADE_TR + 32, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    grid[dev] = sms * per_sm;
+  }
+  const int n_tiles = (n + SHADE_TR - 1) / SHADE_TR;
+  const bool aligned = n % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(sf) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(si) % 16 == 0;
+  const int bulk_tiles = aligned ? n / SHADE_TR : 0;
+  const int n_blocks = n_tiles < grid[dev] ? n_tiles : grid[dev];
+  shade_staged_kernel<<<n_blocks, SHADE_TR + 32, smem, stream>>>(
+      sf, si, n, out, n_tiles, bulk_tiles);
+  return cudaGetLastError();
+}
+
+// The copy floor of the shade kernel, for measurement only (no path
+// launches it): one thread per ray in blocks of THREADS, as the first
+// shade kernel ran, reading the same 75 f32 and 6 i32 rows and writing 16
+// rows, row k the sum of the f32 rows k, k + 16, ... and int row k. Its
+// time is what streaming the shade stacks allows on the card, apart from
+// the math.
+__global__ void stack_copy_kernel(const float* __restrict__ sf,
+                                  const int* __restrict__ si, int n,
+                                  float* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  float acc[NSO];
+#pragma unroll
+  for (int k = 0; k < NSO; ++k) acc[k] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NSF; ++k) acc[k % NSO] += sf[(size_t)k * n + r];
+#pragma unroll
+  for (int k = 0; k < NSI; ++k) acc[k] += (float)si[(size_t)k * n + r];
+#pragma unroll
+  for (int k = 0; k < NSO; ++k) out[(size_t)k * n + r] = acc[k];
+}
+
 }  // namespace
 
 extern "C" {
@@ -813,9 +973,16 @@ int srt_hitrec(const float* hf, int n, float* out, void* stream) {
 
 int srt_shade(const float* sf, const int* si, int n, float* out,
               void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_staged(sf, si, n, out, (cudaStream_t)stream));
+}
+
+int srt_stack_copy(const float* sf, const int* si, int n, float* out,
+                   void* stream) {
   if (n > 0) {
-    shade_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(sf, si, n,
-                                                                  out);
+    stack_copy_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
+        sf, si, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

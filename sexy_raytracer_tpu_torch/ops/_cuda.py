@@ -35,6 +35,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "sexy_raytracer_tpu_torch"
 SOURCES = ("find.cu", "fused.cu", "histogram.cu")
+HEADERS = ("pipeline.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",
@@ -57,7 +58,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return _BUILD / f"libsrt_kernels-{h.hexdigest()[:16]}.so"
@@ -108,6 +109,33 @@ def build() -> Path:
     log_path.write_text(log)
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     build_info.update(path=str(out), seconds=seconds, cached=False, log=log)
+    return out
+
+
+def ptxas_report(log=None) -> dict:
+    """ptxas's report of each kernel in a build log (``build_info``'s by
+    default) -> {mangled name: {registers, smem, spill}}: registers a
+    thread, static shared memory and spill-store bytes."""
+    import re
+
+    out, name = {}, None
+    for line in (build_info.get("log", "") if log is None else log) \
+            .splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = dict(registers=0, smem=0, spill=0)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[name]["spill"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(m.group(1)) if m else 0
     return out
 
 

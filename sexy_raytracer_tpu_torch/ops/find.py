@@ -5,9 +5,8 @@ Three kernels and kernel 2's regrouping pass, each with a plain PyTorch
 version beside it:
 
 * ``find_closest`` replaces the TPU's ``_find_kernel`` (pallas_find.py:170,
-  via ``find_hit_clustered`` :521): the closest hit per ray over its ray
-  block's culled cluster worklist, front to back with a block-wide early
-  out, plus every sphere.
+  via ``find_hit_clustered`` :521): the closest hit per ray over its
+  128-ray block's culled cluster worklist, plus every sphere.
 * ``find_any`` replaces ``_occluded_kernel`` (pallas_find.py:681, via
   ``find_occluded`` :765): is there a non-emissive primitive with t in
   [t_min, t_bound)? ``any_regroup`` (from the same TPU kernel's sphere
@@ -20,18 +19,21 @@ version beside it:
   worklists of clusters from the per-block interval cull
   ``cluster_lists_block``.
 
-Kernels 8 and 2 share a walk (``_lane_walk``): front to back over a
+Kernels 1, 8 and 2 share a walk (``_lane_walk``): front to back over a
 block's clusters with the early out at every tile, each ray testing only
 the tiles whose padded box its own slab test enters before its best t (or
-bound). The wrappers launch the CUDA kernel (csrc/find.cu) on CUDA tensors
-and run the plain version on CPU tensors; there is no fallback between
-them.
+bound). ``find_streamed_plain`` is the plain version of both closest-hit
+kernels. The wrappers launch the CUDA kernel (csrc/find.cu) on CUDA
+tensors and run the plain version on CPU tensors; there is no fallback
+between them.
 
-Data layout (the TPU kernel's, so that inputs compare one to one):
+Data layout (the TPU kernel's, but for the triangle pack):
 
-* triangle pack ``[NC, 16, CK]``: rows n(3), d, q0(3), c0, q1(3), c1,
-  q2(3), c2 for cluster c's CK = CLUSTER_SIZE triangles (zero padded:
-  n = 0 never passes the plane test);
+* triangle pack ``[NC, CK, 16]``: for each of cluster c's CK =
+  CLUSTER_SIZE triangles its 16 floats n(3), d, q0(3), c0, q1(3), c1,
+  q2(3), c2 (zero padded: n = 0 never passes the plane test), so that a
+  cluster's tile is one contiguous 16 KB copy and a triangle four 16-byte
+  words (the TPU's ``[NC, 16, CK]`` transposed);
 * sphere pack ``[Spad, 8]``: center base(3), center delta(3), radius,
   valid — the center at time t is ``base + delta * t``;
 * rays ``[Rpad, 8]`` (``[Rpad, 9]`` with t_bound for the any-hit query):
@@ -39,8 +41,8 @@ Data layout (the TPU kernel's, so that inputs compare one to one):
 * worklists ``[NB, 1 + 2 NC]`` int32, one row per block of rays: the
   count of active clusters, their ids front to back, and their
   block-min entry distances as order-preserving int32 bits;
-* cluster boxes ``[NC, 8]`` (kernels 8 and 2): lo xyz, 0, hi xyz, 0,
-  padded (``_lane_boxes``).
+* cluster boxes ``[NC, 8]``: lo xyz, 0, hi xyz, 0, padded
+  (``_lane_boxes``; kernel 1's from the triangles, ``_tri_boxes``).
 
 The triangle pack and the padded boxes are derived from the scene once
 (``_derived``) and rebuilt only when their source tensors change.
@@ -67,10 +69,13 @@ from sexy_raytracer_tpu_torch.ops.intersect import (
 )
 from sexy_raytracer_tpu_torch.utils.mathx import EPSILON
 
-# Rays per CUDA block and per worklist row. The TPU grows its ray block
-# to fit the worklists into scalar memory; the card reads them from
-# device memory, so the block stays at the size that culls finest.
+# Rays per CUDA block and per worklist row of kernels 1 and 2. The TPU
+# grows its ray block to fit the worklists into scalar memory; the card
+# reads them from device memory, so the block stays at the size that culls
+# finest.
 RAY_BLOCK = 128
+# Kernel 1's rays a consumer lane (CLOSEST_RPT in csrc/find.cu)
+FIND_RAYS_PER_LANE = 1
 _BIG = 3.0e38
 # Above this many clusters the exact per-ray cull's [NC, R] intermediates
 # dominate and the JAX package switches to a per-block interval cull.
@@ -87,7 +92,7 @@ STREAM_RAY_BLOCK = 256
 CULL_PAIRS_MAX = 1 << 23
 
 FIND_CLOSEST = _cuda.Kernel(
-    "srt_find_closest", "pippiipiiiipp",
+    "srt_find_closest", "pippiippiiiipp",
     source="sexy_raytracer_tpu_torch/csrc/find.cu",
     replaces="sexy_raytracer_tpu/ops/pallas_find.py:170 (_find_kernel)",
 )
@@ -136,8 +141,8 @@ def _derived(fn):
 
 
 def _pack_triangles(scene):
-    """[NC, 16, CK] plane/edge pack: rows n(3), d, q(9 interleaved), c(3);
-    and NC."""
+    """[NC, CK, 16] plane/edge pack: per triangle n(3), d, then q and c
+    interleaved by edge (q0(3) c0 q1(3) c1 q2(3) c2); and NC."""
     return _triangle_pack(scene.tri_n, scene.tri_d, scene.tri_q, scene.tri_c)
 
 
@@ -152,10 +157,10 @@ def _triangle_pack(tri_n, tri_d, q, c):
         q[:, 1, 0], q[:, 1, 1], q[:, 1, 2], c[:, 1],
         q[:, 2, 0], q[:, 2, 1], q[:, 2, 2], c[:, 2],
     ]
-    pack = torch.zeros((16, nc * ck), dtype=torch.float32,
+    pack = torch.zeros((nc * ck, 16), dtype=torch.float32,
                        device=tri_n.device)
-    pack[:, :T] = torch.stack(rows, dim=0)
-    return pack.reshape(16, nc, ck).transpose(0, 1).contiguous(), nc
+    pack[:T] = torch.stack(rows, dim=1)
+    return pack.reshape(nc, ck, 16), nc
 
 
 def _pack_spheres(scene, occluder=None):
@@ -401,7 +406,7 @@ def _scene_lists(scene, org, dir, t_min, t_max, nb, cull):
     T = scene.tri_v0.shape[0]
     dev = org.device
     if T == 0:
-        pack = torch.zeros((0, 16, CLUSTER_SIZE), device=dev)
+        pack = torch.zeros((0, CLUSTER_SIZE, 16), device=dev)
         return pack, torch.zeros((nb, 1), dtype=torch.int32, device=dev)
     tri_pack, nc = _pack_triangles(scene)
     if cull and scene.cluster_min.shape[0] == nc:
@@ -427,6 +432,20 @@ def find_hit_clustered(scene, org, dir, time, t_min=None, cull=True):
     are dead (miss everything, excluded from the cull lists).
     """
     R = org.shape[0]
+    t, prim = find_closest(*resident_inputs(scene, org, dir, time, t_min,
+                                            cull))
+    t, prim = t[:R], prim[:R]
+    return prim, torch.where(prim >= 0, t, float("inf"))
+
+
+@torch.no_grad()
+def resident_inputs(scene, org, dir, time, t_min=None, cull=True):
+    """The arguments of ``find_closest`` for a wavefront: (lists, rays,
+    pack, boxes, sph_pack, n_tris). The lists come from the per-ray cull of
+    the scene's cluster boxes for ``RAY_BLOCK``-ray blocks (every cluster
+    without ``cull``), bounded by the closest sphere hits; the walk's
+    padded boxes from the triangles' current positions (``_tri_boxes``), so
+    that a box never misses its cluster's triangles."""
     t_min = _per_ray_t_min(t_min, org)
     rays, nb = _ray_table(
         [org[:, 0], org[:, 1], org[:, 2], dir[:, 0], dir[:, 1], dir[:, 2],
@@ -436,77 +455,65 @@ def find_hit_clustered(scene, org, dir, time, t_min=None, cull=True):
     sph_bound = None
     if scene.sph_c0.shape[0] > 0:
         sph_bound, _ = _sph_candidates(scene, org, dir, time, t_min)
-    tri_pack, lists = _scene_lists(scene, org, dir, t_min, sph_bound, nb,
-                                   cull)
-    t, prim = find_closest(lists, rays, tri_pack, _pack_spheres(scene),
-                           scene.tri_v0.shape[0])
-    t, prim = t[:R], prim[:R]
-    return prim, torch.where(prim >= 0, t, float("inf"))
+    pack, lists = _scene_lists(scene, org, dir, t_min, sph_bound, nb, cull)
+    if pack.shape[0]:
+        boxes = _tri_boxes(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    else:
+        boxes = torch.zeros((0, 8), device=rays.device)
+    return lists, rays, pack, boxes, _pack_spheres(scene), \
+        scene.tri_v0.shape[0]
 
 
-def find_closest(lists, rays, tri_pack, sph_pack, n_tris):
-    """Closest hit per ray -> (t [Rpad] f32, prim [Rpad] int32; -1 = miss).
+def find_closest(lists, rays, pack, boxes, sph_pack, n_tris):
+    """Closest hit per ray over the resident worklists of ``RAY_BLOCK``-ray
+    blocks -> (t [Rpad] f32, prim [Rpad] int32; -1 = miss).
 
     Launches the CUDA kernel on CUDA tensors (csrc/find.cu), runs
-    ``find_closest_plain`` on CPU tensors.
+    ``find_streamed_plain`` (the walk of ``_lane_walk``, spheres first) on
+    CPU tensors.
 
-    Kernel note. Replaces ``_find_kernel`` (pallas_find.py:170). One CUDA
-    block of RAY_BLOCK threads per worklist row, one thread per ray. The
-    block stages each active cluster's [16, CK] tile (16 KB) in shared
-    memory and every thread tests its ray against the CK triangles
-    (broadcast reads, no bank conflicts). Bound: the FP32 pipes and the
-    divide, 16 loads and ~40 flops per (ray, triangle) pair; device
-    memory traffic is the 32 B ray, 8 B out and the tiles, which L2
-    serves. The culled worklist keeps pairs few, and the block stops as
-    soon as no remaining cluster's entry distance can beat the block's
-    worst best-t (``__syncthreads_or``), as the TPU kernel does.
+    Kernel note. Replaces ``_find_kernel`` (pallas_find.py:170), which
+    stages each active cluster's [16, CK] slab in VMEM and tests every lane
+    of its ray block against it. What bounds it on the card is the test
+    loop, ~37 float32 operations per (ray, triangle) test, times the tests
+    it makes. The first port ran that design: one thread a ray, every lane
+    of a 128-ray block on every tile the block visited until a block-wide
+    early out, 16 scalar shared-memory loads a test; at bounces 1 and 2 of
+    the frame its blocks listed 3.3x and 16x the tests their rays need. It
+    now runs the cluster walk of ``find_streamed`` on the same lists and in
+    the same order: a per-ray slab test against the padded box of each
+    cluster, a warp that no ray needs skipping the tile, a triangle read as
+    four 16-byte words; tiles arrive by one bulk copy each into a ring of
+    two stages. The walk's test loop is a chain of dependent operations,
+    so kernel 1 runs one ray a lane: four consumer warps a 128-ray block,
+    which on the H100 beat two rays a lane and 256-ray blocks at every
+    bounce (``PERF.md``). Spheres come first;
+    a triangle replaces the best only if strictly nearer.
     """
     if not rays.is_cuda:
-        return find_closest_plain(lists, rays, tri_pack, sph_pack, n_tris)
-    nb = _check_find_args(lists, rays, tri_pack, sph_pack)
+        return find_streamed_plain(lists, rays, pack, boxes, sph_pack,
+                                   n_tris)
+    nb = _check_walk_args(lists, rays, pack, boxes, 8, RAY_BLOCK)
+    _check_sph(sph_pack, rays.device)
     Rpad = rays.shape[0]
     out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
     out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
     FIND_CLOSEST.launch(
         rays.device,
-        _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays),
-        _cuda.ptr(tri_pack), tri_pack.shape[0], tri_pack.shape[2],
-        _cuda.ptr(sph_pack), sph_pack.shape[0], n_tris, RAY_BLOCK, nb,
+        _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays), _cuda.ptr(pack),
+        pack.shape[0], pack.shape[1], _cuda.ptr(boxes), _cuda.ptr(sph_pack),
+        sph_pack.shape[0], n_tris, RAY_BLOCK, nb,
         _cuda.ptr(out_t), _cuda.ptr(out_i),
     )
     return out_t, out_i
 
 
-def _check_find_args(lists, rays, tri_pack, sph_pack):
-    """Validate what ``find_closest``'s kernel reads; returns the block
-    count."""
-    n_cols = 8
-    dev = rays.device
-    for name, x, dtype in (("lists", lists, torch.int32),
-                           ("rays", rays, torch.float32),
-                           ("tri_pack", tri_pack, torch.float32),
-                           ("sph_pack", sph_pack, torch.float32)):
-        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(
-                f"{name}: need a contiguous {dtype} tensor on {dev}, got "
-                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
-            )
-    Rpad = rays.shape[0]
-    if rays.ndim != 2 or rays.shape[1] != n_cols or Rpad % RAY_BLOCK:
-        raise ValueError(f"rays must be [nb * {RAY_BLOCK}, {n_cols}], got "
-                         f"{tuple(rays.shape)}")
-    nb = Rpad // RAY_BLOCK
-    nc = tri_pack.shape[0]
-    if lists.shape != (nb, 1 + 2 * nc):
-        raise ValueError(f"lists {tuple(lists.shape)} do not fit {nb} "
-                         f"blocks of {nc} clusters")
-    if tri_pack.ndim != 3 or tri_pack.shape[1] != 16 or tri_pack.shape[2] > 512:
-        raise ValueError(f"tri_pack must be [NC, 16, CK <= 512], got "
-                         f"{tuple(tri_pack.shape)}")
-    if sph_pack.ndim != 2 or sph_pack.shape[1] != 8:
-        raise ValueError(f"sph_pack must be [Spad, 8], got "
-                         f"{tuple(sph_pack.shape)}")
-    return nb
+def _check_sph(sph_pack, device):
+    if sph_pack.device != device or sph_pack.dtype != torch.float32 \
+            or not sph_pack.is_contiguous() or sph_pack.ndim != 2 \
+            or sph_pack.shape[1] != 8:
+        raise ValueError("sph_pack must be a contiguous float32 [Spad, 8] "
+                         f"tensor on {device}")
 
 
 def _sphere_tc(rays, sph_pack):
@@ -535,12 +542,12 @@ def _sphere_tc(rays, sph_pack):
 
 
 def _tile_t(tile, rays_b):
-    """One cluster tile per block against its rays: [n, 16, CK] x
+    """One cluster tile per block against its rays: [n, CK, 16] x
     [n, BR, 8+] -> (t [n, BR, CK], valid [n, BR, CK])."""
     ox, oy, oz = rays_b[..., 0:1], rays_b[..., 1:2], rays_b[..., 2:3]
     dx, dy, dz = rays_b[..., 3:4], rays_b[..., 4:5], rays_b[..., 5:6]
     t_min = rays_b[..., 7:8]
-    r = [tile[:, i:i + 1, :] for i in range(16)]
+    r = [tile[:, None, :, i] for i in range(16)]
     ndir = dx * r[0] + dy * r[1] + dz * r[2]
     a_n = ox * r[0] + oy * r[1] + oz * r[2] + r[3]
     plane_ok = ndir <= -EPSILON
@@ -561,64 +568,13 @@ def _worst_bits(x):
 
 
 def _block_chunks(nb, tri_pack, ray_block=RAY_BLOCK):
-    ck = max(tri_pack.shape[-1], 1)
+    ck = max(tri_pack.shape[1], 1)
     step = max(1, _PLAIN_CHUNK_ELEMS // (ray_block * ck))
     return [(b0, min(nb, b0 + step)) for b0 in range(0, nb, step)]
 
 
-def find_closest_plain(lists, rays, tri_pack, sph_pack, n_tris):
-    """Plain PyTorch version of ``find_closest``: the same worklists, tile
-    order, early out and tie rule (lowest id within a tile, the earlier
-    tile across tiles), vectorized over ray blocks."""
-    ray_block = RAY_BLOCK
-    Rpad = rays.shape[0]
-    nb = Rpad // ray_block
-    ck = tri_pack.shape[2]
-    n_entries = tri_pack.shape[0]
-    out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
-    out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
-    big_id = torch.tensor(2 ** 30, dtype=torch.int32, device=rays.device)
-    lane = torch.arange(ck, dtype=torch.int32, device=rays.device)
-    for b0, b1 in _block_chunks(nb, tri_pack, ray_block):
-        rb = rays[b0 * ray_block:b1 * ray_block]
-        tc = _sphere_tc(rb, sph_pack)
-        sph_t = tc.amin(dim=1)
-        srow = torch.arange(tc.shape[1], dtype=torch.int32,
-                            device=rays.device)
-        sph_i = torch.where(tc <= sph_t[:, None], n_tris + srow,
-                            big_id).amin(dim=1)
-        bt = sph_t.reshape(b1 - b0, ray_block)
-        bi = torch.where(sph_t < _BIG, sph_i, -1).reshape(b1 - b0, ray_block)
-        if n_tris > 0 and n_entries > 0:
-            rays_b = rb.reshape(b1 - b0, ray_block, -1)
-            lst = lists[b0:b1]
-            count = lst[:, 0]
-            active = torch.ones(b1 - b0, dtype=torch.bool, device=rays.device)
-            for k in range(n_entries):
-                active &= (k < count) \
-                    & (lst[:, 1 + n_entries + k] < _worst_bits(bt))
-                blk = active.nonzero().squeeze(1)
-                if blk.numel() == 0:
-                    break
-                c = lst[blk, 1 + k].long()
-                t, valid = _tile_t(tri_pack[c], rays_b[blk])
-                tcl = torch.where(valid, t, _BIG)
-                tile_t = tcl.amin(dim=2)
-                win = torch.where(
-                    tcl <= tile_t[..., None],
-                    (c[:, None] * ck).to(torch.int32)[..., None] + lane,
-                    big_id).amin(dim=2)
-                better = tile_t < bt[blk]
-                bt[blk] = torch.where(better, tile_t, bt[blk])
-                bi[blk] = torch.where(better, win, bi[blk])
-        out_t[b0 * ray_block:b1 * ray_block] = bt.reshape(-1)
-        out_i[b0 * ray_block:b1 * ray_block] = torch.where(
-            bt < _BIG, bi, -1).reshape(-1)
-    return out_t, out_i
-
-
 # ---------------------------------------------------------------------------
-# the cluster walk of kernels 8 and 2: per-lane boxes, the plain walk
+# the cluster walk of kernels 1, 8 and 2: per-lane boxes, the plain walk
 # ---------------------------------------------------------------------------
 
 def _cluster_boxes(scene):
@@ -630,19 +586,30 @@ def _cluster_boxes(scene):
     return cluster_bounds_device(scene.tri_v0, scene.tri_v1, scene.tri_v2)
 
 
-@_derived
-def _lane_boxes(cmin, cmax):
+def _padded_boxes(cmin, cmax):
     """[NC, 8] float32 rows (lo xyz, 0, hi xyz, 0): the cluster boxes that
     the walk's per-ray slab test reads, padded on every side by 1e-5 of
     the scene's extent (1 + its largest coordinate), far above the float32
     rounding of that test and of the triangle test, so a ray the test
-    turns away has no hit in the box. Kept for the box tensors it was last
-    called with (``_derived``)."""
+    turns away has no hit in the box."""
     real = (cmin <= cmax).all(dim=1, keepdim=True)
     ext = torch.where(real, torch.maximum(cmin.abs(), cmax.abs()), 0.0)
     m = 1e-5 * (1.0 + ext.amax()) if cmin.numel() else 0.0
     zero = torch.zeros_like(cmin[:, :1])
     return torch.cat([cmin - m, zero, cmax + m, zero], dim=1).contiguous()
+
+
+# the padded boxes of the given cluster boxes (kernels 8 and 2), kept for
+# the box tensors they were last made of
+_lane_boxes = _derived(_padded_boxes)
+
+
+@_derived
+def _tri_boxes(v0, v1, v2):
+    """The padded boxes of the clusters of the triangles ``v0, v1, v2``
+    [T, 3] as they are now (kernel 1), kept for the vertex tensors they
+    were last made of."""
+    return _padded_boxes(*cluster_bounds_device(v0, v1, v2))
 
 
 def _lane_enters(rays_b, boxes, best):
@@ -684,7 +651,7 @@ def _lane_walk(lists, rays, pack, boxes, state, index=None):
         return
     RB = Rpad // nb
     nc = (lists.shape[1] - 1) // 2
-    ck = pack.shape[2]
+    ck = pack.shape[1]
     big_id = torch.tensor(2 ** 30, dtype=torch.int32, device=rays.device)
     lane = torch.arange(ck, dtype=torch.int32, device=rays.device)
     for b0, b1 in _block_chunks(nb, pack, RB):
@@ -737,10 +704,10 @@ def _check_walk_args(lists, rays, pack, boxes, n_cols, ray_block):
         raise ValueError(f"rays must be [{nb} * {ray_block}, {n_cols}] for "
                          f"{nb} list rows, got {tuple(rays.shape)}")
     nc = pack.shape[0]
-    if pack.ndim != 3 or pack.shape[1] != 16 or pack.shape[2] > 512 \
-            or pack.shape[2] % 4:
-        raise ValueError(f"pack must be [NC, 16, CK <= 512, a multiple of "
-                         f"4], got {tuple(pack.shape)}")
+    if pack.ndim != 3 or pack.shape[2] != 16 or pack.shape[1] > 512 \
+            or pack.shape[1] % 4:
+        raise ValueError(f"pack must be [NC, CK <= 512, a multiple of 4, "
+                         f"16], got {tuple(pack.shape)}")
     if lists.shape[1] != 1 + 2 * nc or boxes.shape != (nc, 8):
         raise ValueError(f"lists {tuple(lists.shape)} and boxes "
                          f"{tuple(boxes.shape)} do not fit {nc} clusters")
@@ -783,7 +750,7 @@ def streamed_inputs(scene, org, dir, time, t_min=None):
     rays, _ = _ray_table(
         [org[:, 0], org[:, 1], org[:, 2], dir[:, 0], dir[:, 1], dir[:, 2],
          time, t_min], {7: _BIG}, STREAM_RAY_BLOCK)
-    pack, _ = _pack_triangles(scene)                    # [NC, 16, CK]
+    pack, _ = _pack_triangles(scene)                    # [NC, CK, 16]
     cmin, cmax = _cluster_boxes(scene)
     sph_bound = None
     if scene.sph_c0.shape[0] > 0:
@@ -812,9 +779,9 @@ def find_streamed(lists, rays, pack, boxes, sph_pack, n_tris):
     early out at every tile; per ray a slab test against the cluster's
     padded box, so a warp whose rays all miss the box skips the tile, and
     a warp vote that skips triangles no live ray faces; two rays a lane,
-    so each triangle read from shared memory (four 16-byte loads, the
-    tile transposed at its copy) serves two tests; a producer warp that
-    keeps a ring of three stages filled by ``cp.async`` with ``mbarrier``
+    so each triangle read from shared memory (four 16-byte loads) serves
+    two tests; a producer lane that keeps a ring of three stages filled,
+    one bulk copy of a cluster's [CK, 16] tile each, with ``mbarrier``
     completion. Spheres come first; a triangle replaces the best only if
     strictly nearer.
     """
@@ -822,18 +789,14 @@ def find_streamed(lists, rays, pack, boxes, sph_pack, n_tris):
         return find_streamed_plain(lists, rays, pack, boxes, sph_pack,
                                    n_tris)
     nb = _check_walk_args(lists, rays, pack, boxes, 8, STREAM_RAY_BLOCK)
-    if sph_pack.device != rays.device or sph_pack.dtype != torch.float32 \
-            or not sph_pack.is_contiguous() or sph_pack.ndim != 2 \
-            or sph_pack.shape[1] != 8:
-        raise ValueError("sph_pack must be a contiguous float32 [Spad, 8] "
-                         f"tensor on {rays.device}")
+    _check_sph(sph_pack, rays.device)
     Rpad = rays.shape[0]
     out_t = torch.empty(Rpad, dtype=torch.float32, device=rays.device)
     out_i = torch.empty(Rpad, dtype=torch.int32, device=rays.device)
     FIND_STREAMED.launch(
         rays.device,
         _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays), _cuda.ptr(pack),
-        pack.shape[0], pack.shape[2], _cuda.ptr(boxes), _cuda.ptr(sph_pack),
+        pack.shape[0], pack.shape[1], _cuda.ptr(boxes), _cuda.ptr(sph_pack),
         sph_pack.shape[0], n_tris, STREAM_RAY_BLOCK, nb, _cuda.ptr(out_t),
         _cuda.ptr(out_i),
     )
@@ -1005,7 +968,7 @@ def find_any(lists, rays, perm, pack, boxes, n_tris):
     FIND_ANY.launch(
         rays.device,
         _cuda.ptr(lists), lists.shape[1], _cuda.ptr(rays), _cuda.ptr(perm),
-        _cuda.ptr(pack), pack.shape[0], pack.shape[2], _cuda.ptr(boxes),
+        _cuda.ptr(pack), pack.shape[0], pack.shape[1], _cuda.ptr(boxes),
         n_tris, RAY_BLOCK, nb, _cuda.ptr(out),
     )
     return out

@@ -101,6 +101,16 @@ SHADE_BWD = _cuda.Kernel(
     source="sexy_raytracer_tpu_torch/csrc/fused.cu",
     replaces="sexy_raytracer_tpu/ops/fused.py:505 (_shade_bwd_kernel)",
 )
+# Rays a tile and stages of the shade kernel's ring (SHADE_TR and
+# SHADE_STAGES in csrc/fused.cu)
+SHADE_TILE_RAYS, SHADE_STAGES = 64, 3
+# The shade kernel's copy floor: measurement only, replaces nothing and no
+# path launches it (``stack_copy``).
+STACK_COPY = _cuda.Kernel(
+    "srt_stack_copy", "ppip",
+    source="sexy_raytracer_tpu_torch/csrc/fused.cu",
+    replaces="",
+)
 
 
 # ---------------------------------------------------------------------------
@@ -485,23 +495,47 @@ def shade_carry_math(F, I):
 
 def shade_carry_fused(sf, si):
     """([NSF, R] f32, [NSI, R] i32) -> [NSO, R] f32 next carry,
-    differentiable in ``sf`` through ``shade_bwd``."""
-    return _ShadeFused.apply(sf, si)
+    differentiable in ``sf`` through ``shade_bwd``. Where no gradient is
+    asked for (the frame), the forward runs without the autograd
+    Function's host path."""
+    if torch.is_grad_enabled() and sf.requires_grad:
+        return _ShadeFused.apply(sf, si)
+    return _shade(sf, si)
+
+
+def _shade(sf, si):
+    """The forward: the kernel on CUDA tensors, the math on CPU tensors.
+
+    Kernel note. Replaces ``_shade_kernel`` (fused.py:501). Bound: device
+    memory, (75 + 6) x 4 B in and 64 B out per ray against a few hundred
+    float32 operations. The first port ran one thread a ray, each reading
+    its column where ``shade_fwd`` first needed it: at 94 registers a
+    quarter of the card's warps were resident, and every load waited in
+    that ray's chain of sin, exp2 and divides (0.081 ms on the device for
+    the frame chunk, where a kernel that only streams the same stacks takes
+    0.068). The kernel is staged (csrc/fused.cu ``shade_staged_kernel``):
+    persistent blocks, a producer lane that bulk-copies each tile's 81 row
+    segments into a ring of shared-memory stages, the shading reading
+    shared memory while the next tile lands, so that the loads no longer
+    wait in the math's chain. Tiles are 64 rays and the ring three stages,
+    the fastest of the shapes measured (all within 5%, ``PERF.md``).
+    """
+    if not sf.is_cuda:
+        return shade_carry_math(sf, si)
+    _check_stack("sf", sf, NSF, torch.float32)
+    _check_stack("si", si, NSI, torch.int32, like=sf)
+    out = torch.empty((NSO, sf.shape[1]), dtype=torch.float32,
+                      device=sf.device)
+    SHADE.launch(sf.device, _cuda.ptr(sf), _cuda.ptr(si), sf.shape[1],
+                 _cuda.ptr(out))
+    return out
 
 
 class _ShadeFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sf, si):
         ctx.save_for_backward(sf, si)
-        if not sf.is_cuda:
-            return shade_carry_math(sf, si)
-        _check_stack("sf", sf, NSF, torch.float32)
-        _check_stack("si", si, NSI, torch.int32, like=sf)
-        out = torch.empty((NSO, sf.shape[1]), dtype=torch.float32,
-                          device=sf.device)
-        SHADE.launch(sf.device, _cuda.ptr(sf), _cuda.ptr(si), sf.shape[1],
-                     _cuda.ptr(out))
-        return out
+        return _shade(sf, si)
 
     @staticmethod
     def backward(ctx, g):
@@ -531,6 +565,34 @@ def shade_vjp_plain(sf, si, g):
         F = sf.detach().requires_grad_(True)
         (dF,) = torch.autograd.grad(shade_carry_math(F, si), F, g)
     return dF
+
+
+def stack_copy(sf, si):
+    """The shade kernel's copy floor: ([NSF, R] f32, [NSI, R] i32) ->
+    [NSO, R], row k the sum of the f32 rows k, k + NSO, ... and int row k.
+    For measurement only: a kernel of the first shade kernel's launch shape
+    that streams the same stacks and does no shading (csrc/fused.cu
+    ``stack_copy_kernel``); ``stack_copy_plain`` on CPU tensors."""
+    if not sf.is_cuda:
+        return stack_copy_plain(sf, si)
+    _check_stack("sf", sf, NSF, torch.float32)
+    _check_stack("si", si, NSI, torch.int32, like=sf)
+    out = torch.empty((NSO, sf.shape[1]), dtype=torch.float32,
+                      device=sf.device)
+    STACK_COPY.launch(sf.device, _cuda.ptr(sf), _cuda.ptr(si), sf.shape[1],
+                      _cuda.ptr(out))
+    return out
+
+
+def stack_copy_plain(sf, si):
+    """Plain version of ``stack_copy``, in the kernel's order of sums."""
+    out = torch.zeros((NSO, sf.shape[1]), dtype=torch.float32,
+                      device=sf.device)
+    for k in range(NSF):
+        out[k % NSO] += sf[k]
+    for k in range(NSI):
+        out[k] += si[k].to(torch.float32)
+    return out
 
 
 def _check_stack(name, x, rows, dtype, like=None):

@@ -176,7 +176,7 @@ def test_streamed_matches_jax(soup, monkeypatch, max_supers):
     nc = tscene.cluster_min.shape[0]
     lists, rays_t, pack, boxes, _, _ = tfind.streamed_inputs(
         tscene, to, td, tt)
-    assert nc == 36 and pack.shape == (nc, 16, 256) and boxes.shape == (nc, 8)
+    assert nc == 36 and pack.shape == (nc, 256, 16) and boxes.shape == (nc, 8)
     assert lists.shape == (1024 // tfind.STREAM_RAY_BLOCK, 1 + 2 * nc)
     assert rays_t.shape == (1024, 8) and lists[:, 0].max() <= nc
 

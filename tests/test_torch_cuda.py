@@ -77,23 +77,135 @@ def _fuzz(n, dev, seed=42):
 
 
 def test_find_closest_kernel_matches_plain(scene, dev):
+    """Kernel 1 (the cluster walk on 128-ray resident lists) against its
+    plain version: the same prim ids and t bits."""
     org, d, t, t_min = _fuzz(8192, dev)
-    rays, nb = tfind._ray_table(
-        [org[:, 0], org[:, 1], org[:, 2], d[:, 0], d[:, 1], d[:, 2], t,
-         t_min], {7: 3.0e38})
-    sph_bound, _ = tfind._sph_candidates(scene, org, d, t, t_min)
-    tri_pack, lists = tfind._scene_lists(scene, org, d, t_min, sph_bound,
-                                         nb, cull=True)
-    sph_pack = tfind._pack_spheres(scene)
+    inp = tfind.resident_inputs(scene, org, d, t, t_min)
     n = scene.num_triangles
     before = tfind.FIND_CLOSEST.launches
-    t_k, p_k = tfind.find_closest(lists, rays, tri_pack, sph_pack, n)
+    t_k, p_k = tfind.find_closest(*inp)
     torch.cuda.synchronize()
     assert tfind.FIND_CLOSEST.launches == before + 1
-    t_p, p_p = tfind.find_closest_plain(lists, rays, tri_pack, sph_pack, n)
+    t_p, p_p = tfind.find_streamed_plain(*inp)
     assert torch.equal(p_k, p_p)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
     assert ((p_k >= 0) & (p_k < n)).sum() > 100
+
+
+def _bounce_calls(scene, dev, n=8192):
+    """Kernel 1's arguments at bounces 0, 1 and 2 of a trace of ``n``
+    camera rays of the flagship frame, and the shade stacks of its four
+    bounces."""
+    from sexy_raytracer_tpu_torch.render import integrator
+
+    cfg = presets.flagship_standin(n=2, height=72, device="cpu")[1]
+    cam = Camera.from_config(cfg.camera, cfg.aspect, device=dev)
+    r = np.random.default_rng(23)
+    u = torch.tensor(r.uniform(0.2, 0.8, n), dtype=torch.float32, device=dev)
+    v = torch.tensor(r.uniform(0.1, 0.9, n), dtype=torch.float32, device=dev)
+    o, d, tm = cam.get_rays(u, v, torch.tensor(r.random((n, 3)),
+                                               dtype=torch.float32,
+                                               device=dev))
+    keys = torch.stack([torch.arange(n, device=dev),
+                        torch.full((n,), 9, device=dev)], dim=1)
+    return histogram_split.capture_calls(
+        [tfind, integrator], ["find_closest", "shade_carry_fused"],
+        lambda: trace_rays_fused(scene, o, d, tm, keys,
+                                 torch.ones(3, device=dev), 4,
+                                 last_bounce_vis=True))
+
+
+def _assert_kernel_1(inp):
+    t_k, p_k = tfind.find_closest(*inp)
+    t_p, p_p = tfind.find_streamed_plain(*inp)
+    torch.cuda.synchronize()
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    return p_k
+
+
+@pytest.mark.parametrize("bounce", [0, 1, 2])
+def test_find_closest_kernel_at_each_bounce(scene, dev, bounce):
+    """Kernel 1 on the calls of a 4-bounce trace of camera rays (the
+    lists, rays and boxes the integrator gives it): prim ids and t bits
+    of the plain walk."""
+    calls = _bounce_calls(scene, dev)["find_closest"]
+    assert len(calls) == 3
+    p_k = _assert_kernel_1(calls[bounce])
+    assert (p_k >= 0).sum() > 500
+
+
+@pytest.mark.parametrize("wave", ["ties", "per-ray t_min", "dead lanes",
+                                  "zero components", "inside boxes",
+                                  "no cull"])
+def test_find_closest_kernel_on_hard_wavefronts(scene, dev, wave):
+    """Kernel 1 against its plain version on ``checks.resident_wavefronts``
+    (exact ties between clusters, per-ray t_min, dead lanes and a dead
+    block, zero direction components, origins inside cluster boxes) and on
+    uncut lists (every cluster, entry 0: ``pallas_nocull``)."""
+    waves = checks.resident_wavefronts(scene, n=8192)
+    arrs = waves["per-ray t_min" if wave == "no cull" else wave]
+    org, d, t, t_min = (torch.from_numpy(x).to(dev) for x in arrs)
+    inp = tfind.resident_inputs(scene, org, d, t, t_min,
+                                cull=wave != "no cull")
+    p_k = _assert_kernel_1(inp)
+    if wave == "dead lanes":
+        assert bool((p_k[256:384] == -1).all())
+    assert ((p_k >= 0) & (p_k < scene.num_triangles)).sum() > 100
+
+
+def test_find_closest_kernel_without_triangles(dev, tmp_path_factory):
+    """A scene of spheres only: no list to walk, the spheres' hits."""
+    s, _ = presets.flagship_standin(
+        n=2, data_dir=str(tmp_path_factory.mktemp("no-assets")), device=dev)
+    s = s._replace(**{k: getattr(s, k)[:0] for k in (
+        "tri_v0", "tri_v1", "tri_v2", "tri_n", "tri_d", "tri_q", "tri_c")},
+        cluster_min=s.cluster_min[:0], cluster_max=s.cluster_max[:0])
+    org, d, t, t_min = _fuzz(4096, dev, seed=8)
+    inp = tfind.resident_inputs(s, org, d, t, t_min)
+    p_k = _assert_kernel_1(inp)
+    assert (p_k >= 0).sum() > 100
+
+
+def _mixed_stacks(scene, dev, R):
+    """A shade wavefront of ``R`` rays that mixes every material type and
+    texture kind, with 10% dead lanes: the stacks of a trace's bounces,
+    tiled to ``R`` columns, with the int rows redrawn."""
+    stacks = _bounce_calls(scene, dev, 4096)["shade_carry_fused"]
+    sf = torch.cat([a[0] for a in stacks], dim=1)
+    reps = -(-R // sf.shape[1])
+    sf = sf.repeat(1, reps)[:, :R].contiguous()
+    r = np.random.default_rng(R)
+    si = np.stack([np.arange(R) % 4] + [r.integers(0, 4, R)
+                                        for _ in range(tfused.NSI - 1)])
+    sf[12] = torch.tensor(r.random(R) > 0.1, dtype=torch.float32, device=dev)
+    return sf, torch.tensor(si, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("R", [1, 127, 128, 385, 388, 4099, 524288])
+def test_shade_kernel_matches_plain(scene, dev, R):
+    """Kernel 4 (the staged kernel) bit for bit against its plain version,
+    at one ray, a part tile, a whole tile, a whole tile and one ray more
+    (R not a multiple of 4: no bulk copy), a ragged last tile with R a
+    multiple of 4, and the frame chunk."""
+    sf, si = _mixed_stacks(scene, dev, R)
+    before = tfused.SHADE.launches
+    got = tfused.shade_carry_fused(sf, si)
+    torch.cuda.synchronize()
+    assert tfused.SHADE.launches == before + 1
+    want = tfused.shade_carry_math(sf, si)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_stack_copy_kernel_matches_plain(scene, dev):
+    """The copy floor's kernel against its plain version."""
+    sf, si = _mixed_stacks(scene, dev, 4099)
+    before = tfused.STACK_COPY.launches
+    got = tfused.stack_copy(sf, si)
+    torch.cuda.synchronize()
+    assert tfused.STACK_COPY.launches == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       tfused.stack_copy_plain(sf, si).view(torch.int32))
 
 
 def test_find_any_kernel_matches_plain(scene, dev):
