@@ -16,9 +16,12 @@ nonzero without a result line:
      step, each bounded by the tests its rays need (at bounce 0 beside
      the bound from the listed tests), kernel 2 the same occlusion flags,
      its regrouping pass the same ray table and permutation; the hit
-     record within atol 2e-5, rtol 1e-5, kernel 4 bit for bit, also on
-     the train step's wavefront and at two ragged widths, timed beside
-     its copy floor (``fused.stack_copy``);
+     record (kernel 3) and kernel 4 bit for bit, kernel 4 also on the
+     train step's wavefront and at two ragged widths; kernels
+     3, 4 and 6 timed beside their copy floors (``fused.stack_copy``),
+     kernel 6 also on a copy of its stacks whose rows are not 16-byte
+     aligned (it then reads device memory instead of bulk-copying its
+     tiles), bit-equal to its output on the stacks;
    * backward kernels on the inputs of one train step (131,072 paths) and
      of the fuzz wavefront's backward: the hit-record and shade VJPs, with
      the cotangent scaled to unit size, within atol 2e-5, rtol 1e-4 of
@@ -104,7 +107,8 @@ nonzero without a result line:
      atlas), gradients within relative 5e-4 of the fused path's;
    * ``tools.profile`` step and xplane on the stand-in, and
      ``_bigscene_one`` at 3,042 and 304,000 triangles in subprocesses;
-     whether the profiler names the ctypes kernels; the phase's seconds.
+     the profiler's device events name every ctypes kernel of the train
+     step and the sorted histogram; the phase's seconds.
 
 The last three lines are the kernels' JSON record, nvidia-smi's
 "name, power.limit" line, and ``{"ok": true, "device": {...}}``.
@@ -230,7 +234,7 @@ def main(argv=None) -> int:
     from sexy_raytracer_tpu_torch.ops.intersect import find_hit
     from sexy_raytracer_tpu_torch.render import integrator, renderer
     from sexy_raytracer_tpu_torch.render.camera import Camera
-    from sexy_raytracer_tpu_torch.tools import histogram_split
+    from sexy_raytracer_tpu_torch.tools import histogram_split, shade_split
     from sexy_raytracer_tpu_torch.tools.histogram_split import (
         TRAIN_PIXELS,
         TRAIN_SPB,
@@ -410,13 +414,12 @@ def main(argv=None) -> int:
                        f"occluded; {live} live rays regrouped into " \
                        f"{-(-live // find.RAY_BLOCK)} blocks"
 
-    def check_fused(kernel, plain, exact=False):
+    def check_fused(kernel, plain):
         def check(inp):
             got, want = kernel(*inp), plain(*inp)
-            torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
             inexact = int((got.view(torch.int32) != want.view(torch.int32))
                           .sum())
-            if exact and inexact:
+            if inexact:
                 raise AssertionError(f"{inexact} values differ from the "
                                      "plain version's bits")
             return float((got - want).abs().max()), inexact, \
@@ -561,8 +564,7 @@ def main(argv=None) -> int:
                          lambda i: stack_bound(fused.hitrec_math, i,
                                                fused.NHO)),
         "shade_carry_fused": (
-            check_fused(fused.shade_carry_fused, fused.shade_carry_math,
-                        exact=True),
+            check_fused(fused.shade_carry_fused, fused.shade_carry_math),
             fused.shade_carry_fused, fused.shade_carry_math, fused.SHADE,
             lambda i: stack_bound(fused.shade_carry_math, i, fused.NSO)),
         "hitrec_bwd": (
@@ -695,6 +697,42 @@ def main(argv=None) -> int:
                    (sf[:, :r].contiguous(), si[:, :r].contiguous()),
                    kernel_checks["shade_carry_fused"][0], label)
     del train_inputs, copy, sf, si
+
+    # kernels 3 (frame chunk) and 6 (train step) beside their copy floors,
+    # and kernel 6 on a copy of the same stacks whose base lies 4 bytes
+    # past a 16-byte boundary (it then reads device memory, not its bulk
+    # copy), which must give the same bits
+    floors = {"hitrec_fused": lambda hf: ((hf,), None, fused.NHO),
+              "shade_bwd": lambda sf, si, g: ((sf, g), si, fused.NSF)}
+    for name, floor in floors.items():
+        rec, inp, kern = records[name], main_inputs[name], \
+            kernel_checks[name][1]
+        f32, ints, n_out = floor(*inp)
+        f32 = torch.cat(f32)
+        if not torch.equal(
+                fused.stack_copy(f32, ints, n_out).view(torch.int32),
+                fused.stack_copy_plain(f32, ints, n_out).view(torch.int32)):
+            raise AssertionError(f"stack_copy ({name}'s stacks): kernel and "
+                                 "plain version differ")
+        rec["copy_ms"] = time_ms(
+            torch, lambda: fused.stack_copy(f32, ints, n_out), 20)
+        text = ""
+        if name == "shade_bwd":
+            off = tuple(shade_split.unaligned(x) for x in inp)
+            n_dis = int((kern(*inp).view(torch.int32)
+                         != kern(*off).view(torch.int32)).sum())
+            if n_dis:
+                raise AssertionError(f"{name}: {n_dis} values differ on a "
+                                     "copy of its stacks that is not "
+                                     "aligned")
+            rec["unaligned_ms"] = time_ms(torch, lambda: kern(*off), 20)
+            text = (f"{rec['unaligned_ms']:.4f} ms on a copy whose rows "
+                    "are not 16-byte aligned (bit-equal), ")
+            del off
+        log(f"kernel {name} [main]: copy floor {rec['copy_ms']:.4f} ms "
+            f"(stack_copy), kernel {rec['ms']:.4f} ms, {text}bound "
+            f"{rec['bound_ms']:.4f} ms (median, CUDA events, {smi})")
+        del f32, ints
 
     # device time per call from the profiler's device events (CUDA events
     # around one call also count the host's launch gaps), early in the
@@ -1420,6 +1458,10 @@ def main(argv=None) -> int:
                         "window_combine_kernel", "slice_sum_kernel",
                         "place_kernel")}
     log(f"torch.profiler device events name the kernels: {found}")
+    if not all(found.values()):
+        raise AssertionError("torch.profiler's device events name no "
+                             "launch of " + ", ".join(
+                                 fn for fn, ok in found.items() if not ok))
     bigscene_out = os.path.splitext(args.out)[0] + "_bigscene.json"
     big_rows = tprofile.cmd_bigscene(dev, bigscene_out,
                                      runs=((3042, None), (304000, None)))

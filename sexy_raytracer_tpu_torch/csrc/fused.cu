@@ -6,20 +6,38 @@
 // :271), _hitrec_bwd_kernel (fused.py:446) and _shade_bwd_kernel
 // (fused.py:505). The row maps (NHF/NHO, SF_*/NSI/NSO) are the JAX package's;
 // a stack is [K, R] row-major with rays contiguous, the TPU's [K, RB, 128]
-// flattened. The hit record and the VJPs run one thread per ray: every row
-// read and written is a coalesced 4-byte access across a warp.
+// flattened. Every row read and written is a coalesced 4-byte access across
+// a warp.
 //
-// Shading (kernel 4) is bound by device memory: 81 rows read and 16
-// written a ray against a few hundred float32 operations. One thread a ray
-// reaching 0.081 ms on the frame chunk, where a kernel that only streams
-// the same stacks in the same launch shape (stack_copy_kernel, the copy
-// floor) takes 0.068 and the bound is 0.061: at 94 registers a quarter of
-// the warps were resident, and each load waited in its ray's chain of sin,
-// exp2 and divides. shade_staged_kernel takes the loads out of that chain:
-// persistent blocks, a producer lane that bulk-copies a tile's row segments
-// into a ring of shared-memory stages (the copy engine, no registers), and
-// consumer threads that shade one ray each from shared memory while the
-// next tile lands; it runs at the copy floor (PERF.md).
+// What bounds each on an H100 80GB HBM3 at 700 W, beside a kernel that only
+// streams the same stacks in the first kernels' launch shape
+// (stack_copy_kernel, the copy floor; PERF.md):
+//  * The hit record (hitrec_kernel) is bound by device memory, 34 rows read
+//    and 16 written a ray. The TPU kernel computes the triangle and the
+//    sphere branch on every lane and selects, as a vector machine must;
+//    here each lane computes only the branch it keeps (hit_out), with the
+//    same operations, so the bits are the select's. One thread a ray runs
+//    at the copy floor; kernel 4's staged ring was no faster.
+//  * Shading (shade_staged_kernel) is bound by device memory: 81 rows read
+//    and 16 written a ray against a few hundred float32 operations. One
+//    thread a ray took 0.081 ms on the frame chunk, where the copy floor
+//    takes 0.068: at 94 registers a quarter of the warps were resident,
+//    and each load waited in its ray's chain of sin, exp2 and divides. The
+//    staged kernel takes the loads out of that chain: persistent blocks, a
+//    producer lane that bulk-copies a tile's row segments into a ring of
+//    shared-memory stages (the copy engine, no registers), and consumer
+//    threads that shade one ray each from shared memory while the next
+//    tile lands; it runs at the copy floor.
+//  * The shade VJP (shade_bwd_kernel) is bound by its chain of dependent
+//    operations, a few thousand a ray: one thread a ray at 168 registers
+//    (one 256-thread block an SM, its 75 sums in local memory) took 1.7x
+//    the copy floor. Each one-warp block now stages its 32-ray tile in
+//    shared memory with one bulk copy, sums in its rays' columns there,
+//    and is capped at 128 registers, so 16 warps fit on an SM; a ray with
+//    no hit skips the forward (shade_bwd_pass): at the last bounce nearly
+//    every warp holds no hit.
+//  * The hit record's VJP (hitrec_bwd_kernel) runs one thread a ray within
+//    15% of the copy floor.
 //
 // Forward. hit_fwd and shade_fwd are line-by-line transcriptions of the JAX
 // math, in the same evaluation order. The library is built with -fmad=false
@@ -30,11 +48,9 @@
 // Backward. The TPU kernels run jax.vjp inside the kernel body and save no
 // intermediates. The backward kernels here do the same by hand: each thread
 // re-runs hit_fwd / shade_fwd for its ray (the forward intermediates stay in
-// registers; shade_fwd reads its rows through a Plane, device or shared
-// memory, in the same order), then walks the adjoint in reverse. Bound:
-// device memory, the forward stack, the cotangent and the input cotangent
-// streamed once ((34 + 16 + 34) x 4 B and (75 + 6 + 16 + 75) x 4 B per
-// ray) against a few hundred flops. The adjoint keeps JAX's derivative
+// registers; both read their rows through a Plane, device or shared
+// memory), then walks the adjoint in reverse, summing each input's
+// cotangent in a fixed order. The adjoint keeps JAX's derivative
 // conventions:
 //   * a select sends its cotangent to the branch that was taken only, so the
 //     sphere solve on a triangle lane never leaks into the result;
@@ -63,6 +79,8 @@ constexpr float LN2_F = 0.693147180559945309f;
 constexpr int MAT_PBR = 0, MAT_METAL = 1, MAT_DIELECTRIC = 2, MAT_LIGHT = 3;
 constexpr int NHF = 34, NHO = 16, NSF = 75, NSI = 6, NSO = 16;
 constexpr int GF = 27, PK = 57;  // shade-stack rows of gf[0] and pack[0]
+// threads a block of the kernels that run one thread a ray
+constexpr int THREADS = 256;
 
 struct V3 {
   float x, y, z;
@@ -175,10 +193,11 @@ __device__ __forceinline__ float vrefract_bwd(V3 uv, V3 n, float ratio, V3 g,
 }
 
 // Row k, ray r of a [K, n] stack: device memory, or a stage of it in
-// shared memory
+// shared memory. Not __restrict__: the shade VJP sums into the shared rows
+// it reads (the kernels' own pointer arguments carry __restrict__)
 template <typename T>
 struct Plane {
-  const T* __restrict__ p;
+  const T* p;
   int n;
   __device__ __forceinline__ T operator()(int k, int r) const {
     return p[(size_t)k * n + r];
@@ -214,24 +233,33 @@ struct HitFwd {
   bool front_s;
 };
 
-__device__ __forceinline__ HitFwd hit_fwd(const Rows& F, int r) {
-  HitFwd h;
+// The ray, its triangle's rows and whether the lane keeps the triangle
+__device__ __forceinline__ void hit_rows_tri(const Rows& F, int r,
+                                             HitFwd& h) {
   h.org = row3(F, 0, r);
   h.dr = row3(F, 3, r);
-  h.time = F(6, r);
   h.v0 = row3(F, 7, r);
   h.v1 = row3(F, 10, r);
   h.v2 = row3(F, 13, r);
   h.uv0x = F(16, r); h.uv0y = F(17, r);
   h.uv1x = F(18, r); h.uv1y = F(19, r);
   h.uv2x = F(20, r); h.uv2y = F(21, r);
+  h.is_tri = F(32, r) > 0.5f;
+}
+
+// The ray's time and t_min and its sphere's rows
+__device__ __forceinline__ void hit_rows_sphere(const Rows& F, int r,
+                                                HitFwd& h) {
+  h.time = F(6, r);
   h.c0 = row3(F, 22, r);
   h.c1 = row3(F, 25, r);
   h.st0 = F(28, r); h.st1 = F(29, r); h.srad = F(30, r);
   h.t_min = F(31, r);
-  h.is_tri = F(32, r) > 0.5f;
+}
 
-  // --- triangle ---
+// The triangle's plane hit, point and interpolated uv: what every lane
+// needs (the record's rows 12-13 are the triangle's uv on every lane)
+__device__ __forceinline__ void hit_tri_point(HitFwd& h) {
   h.e0 = vsub(h.v1, h.v0);
   h.e1 = vsub(h.v2, h.v0);
   h.n3 = vcross(h.e0, h.e1);
@@ -254,7 +282,10 @@ __device__ __forceinline__ HitFwd hit_fwd(const Rows& F, int r) {
   r2 = r2 / denom;
   h.u_t = r0 * h.uv0x + r1 * h.uv1x + r2 * h.uv2x;
   h.v_t = 1.0f - (r0 * h.uv0y + r1 * h.uv1y + r2 * h.uv2y);
+}
 
+// the triangle's normal, facing and tangent frame (after hit_tri_point)
+__device__ __forceinline__ void hit_tri_frame(HitFwd& h) {
   h.outward_t = vunit(h.n3);
   h.front_t = vdot(h.dr, h.outward_t) < 0.0f;
 
@@ -267,8 +298,10 @@ __device__ __forceinline__ HitFwd hit_fwd(const Rows& F, int r) {
       vscale(h.inv_f, vadd(vscale(-h.duv1x, h.e0), vscale(h.duv0x, h.e1)));
   h.tangent_t = vunit(h.tan_in);
   h.bitangent_t = vunit(h.bit_in);
+}
 
-  // --- sphere ---
+// the sphere's solve, point, normal, facing and tangent frame
+__device__ __forceinline__ void hit_sphere(HitFwd& h) {
   h.moving = (h.c0.x != h.c1.x) || (h.c0.y != h.c1.y) || (h.c0.z != h.c1.z);
   h.sdenom = h.st1 == h.st0 ? 1.0f : h.st1 - h.st0;
   h.frac = (h.time - h.st0) / h.sdenom;
@@ -296,31 +329,55 @@ __device__ __forceinline__ HitFwd hit_fwd(const Rows& F, int r) {
   h.tangent_s = vunit(h.tc);
   h.bc = vcross(h.outward_s, h.tangent_s);
   h.bitangent_s = vunit(h.bc);
+}
+
+// both branches, for the adjoint (kernel 5)
+__device__ __forceinline__ HitFwd hit_fwd(const Rows& F, int r) {
+  HitFwd h;
+  hit_rows_tri(F, r, h);
+  hit_rows_sphere(F, r, h);
+  hit_tri_point(h);
+  hit_tri_frame(h);
+  hit_sphere(h);
   return h;
 }
 
-// [NHF = 34, R] -> [NHO = 16, R]
-__global__ void hitrec_kernel(const float* __restrict__ hf, int n,
-                              float* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const HitFwd h = hit_fwd(Rows{hf, n}, r);
-  const bool t = h.is_tri;
-  V3 normal_t = vwhere(h.front_t, h.outward_t, vneg(h.outward_t));
-  V3 normal_s = vwhere(h.front_s, h.outward_s, vneg(h.outward_s));
-  V3 p = vwhere(t, h.p_t, h.p_s);
-  V3 normal = vwhere(t, normal_t, normal_s);
-  V3 tangent = vwhere(t, h.tangent_t, h.tangent_s);
-  V3 bitangent = vwhere(t, h.bitangent_t, h.bitangent_s);
-  bool front = t ? h.front_t : h.front_s;
-  const float vals[NHO] = {p.x, p.y, p.z,
-                           normal.x, normal.y, normal.z,
-                           tangent.x, tangent.y, tangent.z,
-                           bitangent.x, bitangent.y, bitangent.z,
-                           h.u_t, h.v_t, t ? h.t_t : h.t_s,
-                           front ? 1.0f : 0.0f};
+// The hit record of one ray, its [NHO] values: the branch its lane keeps,
+// and the triangle's uv. Each value goes through the same operations as in
+// hit_fwd, so it has the bits that hitrec_math's select keeps
+__device__ __forceinline__ void hit_out(const Rows& F, int r, float* vals) {
+  HitFwd h;
+  hit_rows_tri(F, r, h);
+  hit_tri_point(h);
+  V3 p, outward, tangent, bitangent;
+  float t;
+  bool front;
+  if (h.is_tri) {
+    hit_tri_frame(h);
+    p = h.p_t;
+    outward = h.outward_t;
+    tangent = h.tangent_t;
+    bitangent = h.bitangent_t;
+    t = h.t_t;
+    front = h.front_t;
+  } else {
+    hit_rows_sphere(F, r, h);
+    hit_sphere(h);
+    p = h.p_s;
+    outward = h.outward_s;
+    tangent = h.tangent_s;
+    bitangent = h.bitangent_s;
+    t = h.t_s;
+    front = h.front_s;
+  }
+  const V3 normal = vwhere(front, outward, vneg(outward));
+  const float v[NHO] = {p.x, p.y, p.z,
+                        normal.x, normal.y, normal.z,
+                        tangent.x, tangent.y, tangent.z,
+                        bitangent.x, bitangent.y, bitangent.z,
+                        h.u_t, h.v_t, t, front ? 1.0f : 0.0f};
 #pragma unroll
-  for (int k = 0; k < NHO; ++k) out[(size_t)k * n + r] = vals[k];
+  for (int k = 0; k < NHO; ++k) vals[k] = v[k];
 }
 
 // VJP of hitrec_math: [NHF, R] forward stack + [NHO, R] cotangent -> [NHF, R]
@@ -628,15 +685,48 @@ __device__ __forceinline__ void shade_out(const ShadeFwd& s, float* vals) {
   for (int k = 0; k < NSO; ++k) vals[k] = v[k];
 }
 
+template <int NO>
 __device__ __forceinline__ void store_column(const float* vals, float* out,
                                              int n, int r) {
 #pragma unroll
-  for (int k = 0; k < NSO; ++k) out[(size_t)k * n + r] = vals[k];
+  for (int k = 0; k < NO; ++k) out[(size_t)k * n + r] = vals[k];
+}
+
+// [NHF, R] -> [NHO, R], one thread a ray, each reading the rows of and
+// computing the branch it keeps; at most 64 registers, so that four blocks
+// fit on an SM and the train step's 131,072 rays run in one wave
+__global__ void __launch_bounds__(THREADS, 4)
+hitrec_kernel(const float* __restrict__ hf, int n, float* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  float vals[NHO];
+  hit_out(Rows{hf, n}, r, vals);
+  store_column<NHO>(vals, out, n, r);
+}
+
+// ---------------------------------------------------------------------------
+// staged kernels
+// ---------------------------------------------------------------------------
+
+// Bulk-copy tile t's segments (TR words each) of the `rows` rows of a
+// [rows, n] stack of 4-byte words into dst, [rows][TR] words of shared
+// memory; the bytes complete on bar
+template <int TR>
+__device__ __forceinline__ void load_rows(void* dst, const void* src,
+                                          int rows, int n, int t,
+                                          unsigned long long* bar) {
+  constexpr unsigned ROW = TR * 4;
+  for (int k = 0; k < rows; ++k)
+    bulk_load(static_cast<char*>(dst) + (size_t)k * ROW,
+              static_cast<const char*>(src) +
+                  ((size_t)k * n + (size_t)t * TR) * 4,
+              ROW, bar);
 }
 
 // Tiles of the staged shade kernel: SHADE_TR rays, SHADE_STAGES stages in
-// the ring (on the H100 tiles of 64 to 256 rays and two or three stages ran
-// within 5% of each other, PERF.md; 64 x 3 was the fastest)
+// the ring (on an H100 80GB HBM3 at 700 W tiles of 64 to 256 rays and two
+// or three stages ran within 5% of each other, PERF.md; 64 x 3 was the
+// fastest)
 constexpr int SHADE_TR = 64;
 constexpr int SHADE_STAGES = 3;
 
@@ -674,19 +764,15 @@ shade_staged_kernel(const float* __restrict__ sf, const int* __restrict__ si,
   __syncthreads();
   if (threadIdx.x >= SHADE_TR) {
     if (threadIdx.x == SHADE_TR) {
-      constexpr unsigned ROW = SHADE_TR * sizeof(float);
       for (int t = blockIdx.x, i = 0; t < bulk_tiles; t += gridDim.x, ++i) {
         const int s = i % SHADE_STAGES;
         if (i >= SHADE_STAGES)
           mbar_wait(&empty[s], ((i / SHADE_STAGES) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], (NSF + NSI) * ROW);
-        const size_t r0 = (size_t)t * SHADE_TR;
-        for (int k = 0; k < NSF; ++k)
-          bulk_load(fs + ((size_t)s * NSF + k) * SHADE_TR,
-                    sf + (size_t)k * n + r0, ROW, &full[s]);
-        for (int k = 0; k < NSI; ++k)
-          bulk_load(is + ((size_t)s * NSI + k) * SHADE_TR,
-                    si + (size_t)k * n + r0, ROW, &full[s]);
+        mbar_arrive_expect_tx(&full[s], (NSF + NSI) * SHADE_TR * 4);
+        load_rows<SHADE_TR>(fs + (size_t)s * NSF * SHADE_TR, sf, NSF, n, t,
+                            &full[s]);
+        load_rows<SHADE_TR>(is + (size_t)s * NSI * SHADE_TR, si, NSI, n, t,
+                            &full[s]);
       }
     }
     return;
@@ -704,38 +790,45 @@ shade_staged_kernel(const float* __restrict__ sf, const int* __restrict__ si,
       __syncwarp();
       if ((j & 31) == 0) mbar_arrive(&empty[s]);
       ++i;
-      store_column(vals, out, n, r);
+      store_column<NSO>(vals, out, n, r);
     } else if (r < n) {
       shade_out(shade_fwd(Rows{sf, n}, IRows{si, n}, r), vals);
-      store_column(vals, out, n, r);
+      store_column<NSO>(vals, out, n, r);
     }
   }
 }
 
-__device__ __forceinline__ void add3(float* d, int row, V3 v) {
+// A ray's accumulators in the shade VJP: row k at p[k * stride], the ray's
+// column of a tile in shared memory
+struct Acc {
+  float* p;
+  int stride;
+  __device__ __forceinline__ float& operator[](int k) const {
+    return p[k * stride];
+  }
+};
+
+__device__ __forceinline__ void add3(const Acc& d, int row, V3 v) {
   d[row] += v.x;
   d[row + 1] += v.y;
   d[row + 2] += v.z;
 }
 
-// VJP of shade_carry_math in its f32 rows: [NSF, R] forward stack, [NSI, R]
-// int rows and [NSO, R] cotangent -> [NSF, R]
-__global__ void shade_bwd_kernel(const float* __restrict__ sf,
-                                 const int* __restrict__ si,
-                                 const float* __restrict__ gout, int n,
-                                 float* __restrict__ dout) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const ShadeFwd s = shade_fwd(Rows{sf, n}, IRows{si, n}, r);
-  const Rows G{gout, n};
+// VJP of shade_carry_math in its f32 rows for one ray with a hit: its
+// [NSF] forward column, [NSI] int column and [NSO] cotangent column (F, I,
+// G) -> its [NSF] cotangent column, summed into d from zero in a fixed
+// order. d may lie where F's column was: F and G are read first
+__device__ __forceinline__ void shade_bwd_hit(const Rows& F, const IRows& I,
+                                              const Rows& G, int r,
+                                              const Acc& d) {
+  const ShadeFwd s = shade_fwd(F, I, r);
   const V3 z = v3(0.0f, 0.0f, 0.0f);
-  float d[NSF];
+  const V3 G_org = row3(G, 0, r), G_dr = row3(G, 3, r),
+           G_thr = row3(G, 6, r), G_rad = row3(G, 9, r);
 #pragma unroll
   for (int kk = 0; kk < NSF; ++kk) d[kk] = 0.0f;
 
   // ---- carry update ----
-  const V3 G_org = row3(G, 0, r), G_dr = row3(G, 3, r),
-           G_thr = row3(G, 6, r), G_rad = row3(G, 9, r);
   V3 g_org = s.alive_next ? z : G_org;
   V3 g_p = s.alive_next ? G_org : z;
   V3 g_dr = s.alive_next ? z : G_dr;
@@ -893,13 +986,105 @@ __global__ void shade_bwd_kernel(const float* __restrict__ sf,
   add3(d, 16, g_nrm);
   add3(d, GF, g_base);
   add3(d, 72, g_bg);
-#pragma unroll
-  for (int kk = 0; kk < NSF; ++kk) dout[(size_t)kk * n + r] = d[kk];
 }
 
-constexpr int THREADS = 256;
+// The same for a ray with no hit (a miss, or a ray that died before): its
+// carry passes through, so org, dir and thr take their cotangents, rad's
+// goes to rad and, on a miss, also to thr and the background. Every other
+// term of the adjoint is a product with a zero cotangent, +0 or -0, and
+// leaves its sum at +0: the bits are shade_bwd_hit's wherever the forward's
+// intermediates are finite, without the forward. Where the forward of such
+// a ray is not finite, the full adjoint, like the plain VJP and the TPU
+// kernel's jax.vjp, spreads a NaN that the pass does not
+__device__ __forceinline__ void shade_bwd_pass(const Rows& F, const Rows& G,
+                                               int r, const Acc& d) {
+  const V3 z = v3(0.0f, 0.0f, 0.0f);
+  const V3 G_org = row3(G, 0, r), G_dr = row3(G, 3, r),
+           G_thr = row3(G, 6, r), G_rad = row3(G, 9, r);
+  V3 g_thr = G_thr, g_bg = z;
+  if (F(12, r) > 0.5f) {  // alive: a miss
+    g_thr = vadd(g_thr, vmul(G_rad, row3(F, 72, r)));
+    g_bg = vmul(G_rad, row3(F, 6, r));
+  }
+#pragma unroll
+  for (int kk = 0; kk < NSF; ++kk) d[kk] = 0.0f;
+  add3(d, 0, G_org);
+  add3(d, 3, G_dr);
+  add3(d, 6, g_thr);
+  add3(d, 9, G_rad);
+  add3(d, 72, g_bg);
+}
+
+__device__ __forceinline__ void shade_bwd_ray(const Rows& F, const IRows& I,
+                                              const Rows& G, int r,
+                                              const Acc& d) {
+  if (F(26, r) > 0.5f)
+    shade_bwd_hit(F, I, G, r, d);
+  else
+    shade_bwd_pass(F, G, r, d);
+}
+
+// Tiles of the shade VJP: SHADE_BWD_TR rays, one warp a block, its
+// registers capped so that 16 blocks fit on an SM
+constexpr int SHADE_BWD_TR = 32, SHADE_BWD_REGISTERS = 128;
+
+// [NSF, R] f32 forward stack, [NSI, R] i32 and [NSO, R] cotangent ->
+// [NSF, R], one warp a tile of SHADE_BWD_TR rays: lane 0 bulk-copies the
+// tile's 75 f32, 16 cotangent and 6 int row segments into the block's
+// shared memory, completing its mbarrier; every lane re-runs the forward
+// of its ray from there (a ray with no hit needs none) and walks the
+// adjoint, summing its cotangent in its own column of the f32 rows once
+// they are read, and writes that column out, coalesced. A ragged last
+// tile, and every tile of stacks whose rows are not 16-byte aligned
+// (bulk_tiles 0), is read straight from device memory, its sums in the
+// same columns. Blocks are not persistent: the card starts each as one
+// ends, which balances tiles of cheap and costly rays.
+__global__ void __launch_bounds__(
+    SHADE_BWD_TR, 65536 / (SHADE_BWD_TR * SHADE_BWD_REGISTERS))
+shade_bwd_kernel(const float* __restrict__ sf, const int* __restrict__ si,
+                 const float* __restrict__ gout, int n,
+                 float* __restrict__ dout, int bulk_tiles) {
+  constexpr int TR = SHADE_BWD_TR;
+  // the tile: [NSF][TR] f32 rows, [NSO][TR] cotangent rows, [NSI][TR] int
+  // rows
+  constexpr int ROWS = NSF + NSO + NSI;
+  __shared__ __align__(128) float st[ROWS * TR];
+  __shared__ unsigned long long full;
+  const int t = blockIdx.x, j = threadIdx.x, r = t * TR + j;
+  const Acc d{st + j, TR};
+  if (t < bulk_tiles) {
+    if (j == 0) {
+      mbar_init(&full, 1);
+      mbar_init_fence();
+      mbar_arrive_expect_tx(&full, ROWS * TR * sizeof(float));
+      load_rows<TR>(st, sf, NSF, n, t, &full);
+      load_rows<TR>(st + NSF * TR, gout, NSO, n, t, &full);
+      load_rows<TR>(st + (NSF + NSO) * TR, si, NSI, n, t, &full);
+    }
+    __syncwarp();
+    mbar_wait(&full, 0);
+    shade_bwd_ray(
+        Rows{st, TR},
+        IRows{reinterpret_cast<const int*>(st + (NSF + NSO) * TR), TR},
+        Rows{st + NSF * TR, TR}, j, d);
+  } else {
+    if (r >= n) return;
+    shade_bwd_ray(Rows{sf, n}, IRows{si, n}, Rows{gout, n}, r, d);
+  }
+#pragma unroll
+  for (int k = 0; k < NSF; ++k) dout[(size_t)k * n + r] = d[k];
+}
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
+
+// Stacks whose row segments a bulk copy can read: R a multiple of 4 (rows
+// 16-byte aligned) and 16-byte aligned bases (a null base: no stack)
+inline bool bulk_aligned(int n, const void* a, const void* b = nullptr,
+                         const void* c = nullptr) {
+  return n % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(c) % 16 == 0;
+}
 
 // Launch the staged shade kernel: as many persistent blocks as fit on the
 // card at once (found once per device), no more than there are tiles.
@@ -928,36 +1113,45 @@ cudaError_t launch_staged(const float* sf, const int* si, int n, float* out,
     grid[dev] = sms * per_sm;
   }
   const int n_tiles = (n + SHADE_TR - 1) / SHADE_TR;
-  const bool aligned = n % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(sf) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(si) % 16 == 0;
-  const int bulk_tiles = aligned ? n / SHADE_TR : 0;
+  const int bulk_tiles = bulk_aligned(n, sf, si) ? n / SHADE_TR : 0;
   const int n_blocks = n_tiles < grid[dev] ? n_tiles : grid[dev];
   shade_staged_kernel<<<n_blocks, SHADE_TR + 32, smem, stream>>>(
       sf, si, n, out, n_tiles, bulk_tiles);
   return cudaGetLastError();
 }
 
-// The copy floor of the shade kernel, for measurement only (no path
-// launches it): one thread per ray in blocks of THREADS, as the first
-// shade kernel ran, reading the same 75 f32 and 6 i32 rows and writing 16
-// rows, row k the sum of the f32 rows k, k + 16, ... and int row k. Its
-// time is what streaming the shade stacks allows on the card, apart from
-// the math.
-__global__ void stack_copy_kernel(const float* __restrict__ sf,
+// The copy floor of the shade-family kernels, for measurement only (no
+// path launches it): one thread per ray in blocks of THREADS, as the first
+// hit-record and shade kernels ran, reading NF f32 and NI i32 rows and
+// writing NO rows, row k the sum of the f32 rows k, k + NO, ... and of the
+// int rows k, k + NO, ... Its time is what streaming a kernel's stacks
+// allows on the card, apart from the math: kernel 3 (34 -> 16), kernel 4
+// (75 + 6 -> 16), kernel 5 (34 + 16 -> 34) and kernel 6 (75 + 16 + 6 ->
+// 75), each f32 input stacked into one.
+template <int NF, int NI, int NO>
+__global__ void stack_copy_kernel(const float* __restrict__ f,
                                   const int* __restrict__ si, int n,
                                   float* __restrict__ out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
-  float acc[NSO];
+  float acc[NO];
 #pragma unroll
-  for (int k = 0; k < NSO; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < NO; ++k) acc[k] = 0.0f;
 #pragma unroll
-  for (int k = 0; k < NSF; ++k) acc[k % NSO] += sf[(size_t)k * n + r];
+  for (int k = 0; k < NF; ++k) acc[k % NO] += f[(size_t)k * n + r];
 #pragma unroll
-  for (int k = 0; k < NSI; ++k) acc[k] += (float)si[(size_t)k * n + r];
+  for (int k = 0; k < NI; ++k) acc[k % NO] += (float)si[(size_t)k * n + r];
 #pragma unroll
-  for (int k = 0; k < NSO; ++k) out[(size_t)k * n + r] = acc[k];
+  for (int k = 0; k < NO; ++k) out[(size_t)k * n + r] = acc[k];
+}
+
+template <int NF, int NI, int NO>
+bool stack_copy_as(int nf, int ni, int no, const float* f, const int* si,
+                   int n, float* out, cudaStream_t stream) {
+  if (nf != NF || ni != NI || no != NO) return false;
+  stack_copy_kernel<NF, NI, NO><<<blocks(n), THREADS, 0, stream>>>(f, si, n,
+                                                                   out);
+  return true;
 }
 
 }  // namespace
@@ -965,9 +1159,8 @@ __global__ void stack_copy_kernel(const float* __restrict__ sf,
 extern "C" {
 
 int srt_hitrec(const float* hf, int n, float* out, void* stream) {
-  if (n > 0) {
+  if (n > 0)
     hitrec_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(hf, n, out);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -978,12 +1171,15 @@ int srt_shade(const float* sf, const int* si, int n, float* out,
       launch_staged(sf, si, n, out, (cudaStream_t)stream));
 }
 
-int srt_stack_copy(const float* sf, const int* si, int n, float* out,
-                   void* stream) {
-  if (n > 0) {
-    stack_copy_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
-        sf, si, n, out);
-  }
+int srt_stack_copy(const float* f, int nf, const int* si, int ni, int n,
+                   float* out, int no, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!stack_copy_as<NHF, 0, NHO>(nf, ni, no, f, si, n, out, st) &&
+      !stack_copy_as<NSF, NSI, NSO>(nf, ni, no, f, si, n, out, st) &&
+      !stack_copy_as<NHF + NHO, 0, NHF>(nf, ni, no, f, si, n, out, st) &&
+      !stack_copy_as<NSF + NSO, NSI, NSF>(nf, ni, no, f, si, n, out, st))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -999,8 +1195,10 @@ int srt_hitrec_bwd(const float* hf, const float* gout, int n, float* dout,
 int srt_shade_bwd(const float* sf, const int* si, const float* gout, int n,
                   float* dout, void* stream) {
   if (n > 0) {
-    shade_bwd_kernel<<<blocks(n), THREADS, 0, (cudaStream_t)stream>>>(
-        sf, si, gout, n, dout);
+    const int n_tiles = (n + SHADE_BWD_TR - 1) / SHADE_BWD_TR;
+    const bool aligned = bulk_aligned(n, sf, si, gout);
+    shade_bwd_kernel<<<n_tiles, SHADE_BWD_TR, 0, (cudaStream_t)stream>>>(
+        sf, si, gout, n, dout, aligned ? n / SHADE_BWD_TR : 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

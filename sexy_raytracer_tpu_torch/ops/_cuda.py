@@ -115,7 +115,8 @@ def build() -> Path:
 def ptxas_report(log=None) -> dict:
     """ptxas's report of each kernel in a build log (``build_info``'s by
     default) -> {mangled name: {registers, smem, spill}}: registers a
-    thread, static shared memory and spill-store bytes."""
+    thread, static shared memory, stack-frame bytes (local arrays and
+    spills) and spill-store bytes."""
     import re
 
     out, name = {}, None
@@ -124,10 +125,13 @@ def ptxas_report(log=None) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            out[name] = dict(registers=0, smem=0, spill=0)
+            out[name] = dict(registers=0, smem=0, stack=0, spill=0)
             continue
         if name is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[name]["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             out[name]["spill"] = int(m.group(1))

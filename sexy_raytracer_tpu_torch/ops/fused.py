@@ -22,16 +22,20 @@ gradient of are detached in the math, so their cotangents come back zero.
 they split the gradient of a tie half and half as JAX does
 (``torch.clamp`` gives it all to the input).
 
-Kernel note (all four). One thread per ray; each reads its column of the
-input stacks and writes its column of the output, coalesced across a warp.
-Bound: device memory — (75 + 6) x 4 B in and 64 B out per ray for the
-shade kernel (136 B + 64 B for the hit record) against a few hundred
-flops, so they run at the bandwidth of streaming the stacks once. The forward keeps
-everything between the stacks in registers, as the TPU kernel keeps it in
-VMEM; a backward kernel re-runs the forward of its ray in registers and
-walks a hand-written adjoint in reverse, as the TPU's in-kernel
-``jax.vjp`` saves no intermediates either: (34 + 16 + 34) x 4 B per ray
-for the hit record's VJP, (75 + 6 + 16 + 75) x 4 B for the shade VJP.
+Kernel note (all four). Each reads its ray's column of the input stacks
+and writes its column of the output, coalesced across a warp. On paper
+all four are bound by device memory: (34 + 16) x 4 B a ray for the hit
+record, (75 + 6 + 16) x 4 B for the shade kernel, (34 + 16 + 34) x 4 B
+and (75 + 6 + 16 + 75) x 4 B for their VJPs, against a few hundred
+float32 operations (a few thousand for the shade VJP). The forwards keep
+everything between the stacks in registers, as the TPU kernels keep it in
+VMEM; a backward kernel re-runs the forward of its ray and walks a
+hand-written adjoint in reverse, as the TPU's in-kernel ``jax.vjp`` saves
+no intermediates either. On an H100 80GB HBM3 at 700 W (``PERF.md``) the
+hit record and its VJP run one thread a ray near their copy floors, the
+shade kernel is staged at its copy floor, and the shade VJP is bound by
+its chain of dependent operations: see ``_hitrec``, ``_shade`` and
+``shade_bwd``.
 """
 
 from __future__ import annotations
@@ -102,15 +106,23 @@ SHADE_BWD = _cuda.Kernel(
     replaces="sexy_raytracer_tpu/ops/fused.py:505 (_shade_bwd_kernel)",
 )
 # Rays a tile and stages of the shade kernel's ring (SHADE_TR and
-# SHADE_STAGES in csrc/fused.cu)
+# SHADE_STAGES in csrc/fused.cu), rays a tile of its VJP, one warp a block
+# (SHADE_BWD_TR), and threads a block of the kernels that run one thread a
+# ray (THREADS)
 SHADE_TILE_RAYS, SHADE_STAGES = 64, 3
-# The shade kernel's copy floor: measurement only, replaces nothing and no
-# path launches it (``stack_copy``).
+SHADE_BWD_TILE_RAYS = 32
+BLOCK_THREADS = 256
+# The copy floor of the shade-family kernels: measurement only, replaces
+# nothing and no path launches it (``stack_copy``), built for the stack
+# shapes (f32 rows in, int rows in, rows out) of kernels 3, 4, 5 and 6,
+# each kernel's f32 inputs stacked into one
 STACK_COPY = _cuda.Kernel(
-    "srt_stack_copy", "ppip",
+    "srt_stack_copy", "pipiipi",
     source="sexy_raytracer_tpu_torch/csrc/fused.cu",
     replaces="",
 )
+COPY_SHAPES = ((NHF, 0, NHO), (NSF, NSI, NSO), (NHF + NHO, 0, NHF),
+               (NSF + NSO, NSI, NSF))
 
 
 # ---------------------------------------------------------------------------
@@ -279,21 +291,41 @@ def hitrec_math(F):
 
 def hitrec_fused(hf):
     """[NHF, R] f32 -> [NHO, R] f32 hit-record stack, differentiable in
-    ``hf`` through ``hitrec_bwd``."""
-    return _HitrecFused.apply(hf)
+    ``hf`` through ``hitrec_bwd``. Where no gradient is asked for (the
+    frame), the forward runs without the autograd Function's host path."""
+    if torch.is_grad_enabled() and hf.requires_grad:
+        return _HitrecFused.apply(hf)
+    return _hitrec(hf)
+
+
+def _hitrec(hf):
+    """The forward: the kernel on CUDA tensors, the math on CPU tensors.
+
+    Kernel note. Replaces ``_hitrec_kernel`` (fused.py:442). Bound: device
+    memory, 34 x 4 B in and 16 x 4 B out per ray against about two hundred
+    float32 operations. Like the TPU kernel's plane-wide select, the first
+    port computed both the triangle and the sphere branch on every lane;
+    the kernel (csrc/fused.cu ``hitrec_kernel``) computes only the branch
+    each lane keeps (the triangle's uv, rows 12-13, on every lane), with
+    the same operations, so its bits are the select's. One thread a ray
+    runs it at its copy floor on an H100 80GB HBM3 at 700 W: kernel 4's
+    staged ring, tried beside it, was no faster at the frame chunk
+    (``PERF.md``).
+    """
+    if not hf.is_cuda:
+        return hitrec_math(hf)
+    _check_stack("hf", hf, NHF, torch.float32)
+    out = torch.empty((NHO, hf.shape[1]), dtype=torch.float32,
+                      device=hf.device)
+    HITREC.launch(hf.device, _cuda.ptr(hf), hf.shape[1], _cuda.ptr(out))
+    return out
 
 
 class _HitrecFused(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hf):
         ctx.save_for_backward(hf)
-        if not hf.is_cuda:
-            return hitrec_math(hf)
-        _check_stack("hf", hf, NHF, torch.float32)
-        out = torch.empty((NHO, hf.shape[1]), dtype=torch.float32,
-                          device=hf.device)
-        HITREC.launch(hf.device, _cuda.ptr(hf), hf.shape[1], _cuda.ptr(out))
-        return out
+        return _hitrec(hf)
 
     @staticmethod
     def backward(ctx, g):
@@ -511,9 +543,10 @@ def _shade(sf, si):
     float32 operations. The first port ran one thread a ray, each reading
     its column where ``shade_fwd`` first needed it: at 94 registers a
     quarter of the card's warps were resident, and every load waited in
-    that ray's chain of sin, exp2 and divides (0.081 ms on the device for
-    the frame chunk, where a kernel that only streams the same stacks takes
-    0.068). The kernel is staged (csrc/fused.cu ``shade_staged_kernel``):
+    that ray's chain of sin, exp2 and divides (on an H100 80GB HBM3 at
+    700 W, 0.081 ms on the device for the frame chunk, where a kernel that
+    only streams the same stacks takes 0.068). The kernel is staged
+    (csrc/fused.cu ``shade_staged_kernel``):
     persistent blocks, a producer lane that bulk-copies each tile's 81 row
     segments into a ring of shared-memory stages, the shading reading
     shared memory while the next tile lands, so that the loads no longer
@@ -546,7 +579,21 @@ class _ShadeFused(torch.autograd.Function):
 def shade_bwd(sf, si, g):
     """VJP of shade + carry in its f32 rows: [NSF, R], [NSI, R] i32,
     [NSO, R] cotangent -> [NSF, R]. The kernel on CUDA tensors,
-    ``shade_vjp_plain`` on CPU tensors."""
+    ``shade_vjp_plain`` on CPU tensors.
+
+    Kernel note. Replaces ``_shade_bwd_kernel`` (fused.py:505). Bound on
+    an H100 80GB HBM3 at 700 W: its chain of dependent operations, not its
+    bytes. One thread a ray at 168 registers (one 256-thread block an SM),
+    its 75 sums in local memory (a run-time index), ran at 1.7x its copy
+    floor. The kernel (csrc/fused.cu ``shade_bwd_kernel``) runs one warp
+    a 32-ray tile: lane 0 bulk-copies the tile's 97 row segments into
+    shared memory, each lane re-runs the forward from there and sums its
+    cotangent in its own column of the tile's f32 rows, each addition in
+    a fixed order; registers capped at 128, 16 warps an SM. A ray with no
+    hit skips the forward: its VJP is the carry's pass-through
+    (``tests/test_torch_fused.py``), which at the last bounce, where
+    nearly every warp holds no hit, takes the kernel to its copy floor.
+    """
     if not sf.is_cuda:
         return shade_vjp_plain(sf, si, g)
     _check_stack("sf", sf, NSF, torch.float32)
@@ -567,31 +614,38 @@ def shade_vjp_plain(sf, si, g):
     return dF
 
 
-def stack_copy(sf, si):
-    """The shade kernel's copy floor: ([NSF, R] f32, [NSI, R] i32) ->
-    [NSO, R], row k the sum of the f32 rows k, k + NSO, ... and int row k.
-    For measurement only: a kernel of the first shade kernel's launch shape
-    that streams the same stacks and does no shading (csrc/fused.cu
-    ``stack_copy_kernel``); ``stack_copy_plain`` on CPU tensors."""
-    if not sf.is_cuda:
-        return stack_copy_plain(sf, si)
-    _check_stack("sf", sf, NSF, torch.float32)
-    _check_stack("si", si, NSI, torch.int32, like=sf)
-    out = torch.empty((NSO, sf.shape[1]), dtype=torch.float32,
-                      device=sf.device)
-    STACK_COPY.launch(sf.device, _cuda.ptr(sf), _cuda.ptr(si), sf.shape[1],
-                      _cuda.ptr(out))
+def stack_copy(f, si=None, n_out=NSO):
+    """The copy floor of a shade-family kernel: ([NF, R] f32, [NI, R] i32
+    or None) -> [n_out, R], row k the sum of the f32 rows k, k + n_out,
+    ... and of the int rows k, k + n_out, ... For measurement only: a
+    kernel of the first kernels' launch shape that streams the same stacks
+    and does no math (csrc/fused.cu ``stack_copy_kernel``), built for the
+    shapes in ``COPY_SHAPES``; ``stack_copy_plain`` on CPU tensors."""
+    if not f.is_cuda:
+        return stack_copy_plain(f, si, n_out)
+    n_int = 0 if si is None else si.shape[0]
+    if (f.shape[0], n_int, n_out) not in COPY_SHAPES:
+        raise ValueError(f"stack_copy: ({f.shape[0]}, {n_int}, {n_out}) "
+                         f"rows is not one of {COPY_SHAPES}")
+    _check_stack("f", f, f.shape[0], torch.float32)
+    if si is not None:
+        _check_stack("si", si, n_int, torch.int32, like=f)
+    out = torch.empty((n_out, f.shape[1]), dtype=torch.float32,
+                      device=f.device)
+    STACK_COPY.launch(f.device, _cuda.ptr(f), f.shape[0],
+                      0 if si is None else _cuda.ptr(si), n_int, f.shape[1],
+                      _cuda.ptr(out), n_out)
     return out
 
 
-def stack_copy_plain(sf, si):
+def stack_copy_plain(f, si=None, n_out=NSO):
     """Plain version of ``stack_copy``, in the kernel's order of sums."""
-    out = torch.zeros((NSO, sf.shape[1]), dtype=torch.float32,
-                      device=sf.device)
-    for k in range(NSF):
-        out[k % NSO] += sf[k]
-    for k in range(NSI):
-        out[k] += si[k].to(torch.float32)
+    out = torch.zeros((n_out, f.shape[1]), dtype=torch.float32,
+                      device=f.device)
+    for k in range(f.shape[0]):
+        out[k % n_out] += f[k]
+    for k in range(0 if si is None else si.shape[0]):
+        out[k % n_out] += si[k].to(torch.float32)
     return out
 
 

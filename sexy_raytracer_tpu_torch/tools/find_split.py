@@ -273,7 +273,8 @@ def host_rows(device):
 
     _, k1 = resident_inputs(device)
     k1 = dict(k1)
-    stacks, _ = shade_split.inputs(device)
+    stacks = {case: args["shade"]
+              for case, args in shade_split.inputs(device).items()}
     cases = [
         ("kernel 1, frame chunk bounce 0", find.FIND_CLOSEST,
          lambda a=k1["frame chunk bounce 0"]: find.find_closest(*a)),

@@ -43,6 +43,7 @@ from sexy_raytracer_tpu_torch.render.integrator import (  # noqa: E402
     trace_rays_fused,
 )
 from sexy_raytracer_tpu_torch.tools import histogram_split  # noqa: E402
+from sexy_raytracer_tpu_torch.tools import shade_split  # noqa: E402
 from sexy_raytracer_tpu_torch.utils import rng  # noqa: E402
 
 TRAIN = DEFAULT_TRAINABLE + ("tri_v0", "tri_v1", "tri_v2")
@@ -94,8 +95,8 @@ def test_find_closest_kernel_matches_plain(scene, dev):
 
 def _bounce_calls(scene, dev, n=8192):
     """Kernel 1's arguments at bounces 0, 1 and 2 of a trace of ``n``
-    camera rays of the flagship frame, and the shade stacks of its four
-    bounces."""
+    camera rays of the flagship frame, and the hit-record and shade stacks
+    of its four bounces."""
     from sexy_raytracer_tpu_torch.render import integrator
 
     cfg = presets.flagship_standin(n=2, height=72, device="cpu")[1]
@@ -109,7 +110,8 @@ def _bounce_calls(scene, dev, n=8192):
     keys = torch.stack([torch.arange(n, device=dev),
                         torch.full((n,), 9, device=dev)], dim=1)
     return histogram_split.capture_calls(
-        [tfind, integrator], ["find_closest", "shade_carry_fused"],
+        [tfind, integrator, integrator],
+        ["find_closest", "hitrec_fused", "shade_carry_fused"],
         lambda: trace_rays_fused(scene, o, d, tm, keys,
                                  torch.ones(3, device=dev), 4,
                                  last_bounce_vis=True))
@@ -197,15 +199,92 @@ def test_shade_kernel_matches_plain(scene, dev, R):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-def test_stack_copy_kernel_matches_plain(scene, dev):
-    """The copy floor's kernel against its plain version."""
+def _unaligned(x):
+    """``shade_split.unaligned``, its base checked: kernels 4 and 6 read it
+    from device memory, not with bulk copies."""
+    y = shade_split.unaligned(x)
+    assert y.data_ptr() % 16 == 4
+    return y
+
+
+def _hit_stacks(scene, dev, R):
+    """A hit-record wavefront of ``R`` rays that mixes triangle, sphere and
+    miss lanes (the stacks of a trace's four bounces, tiled to ``R``
+    columns) with 5% pad lanes (all-zero columns, as JAX pads a
+    wavefront)."""
+    stacks = _bounce_calls(scene, dev, 4096)["hitrec_fused"]
+    hf = torch.cat([a[0] for a in stacks], dim=1)
+    hf = hf.repeat(1, -(-R // hf.shape[1]))[:, :R].contiguous()
+    pad = torch.tensor(np.random.default_rng(R).random(R) < 0.05,
+                       device=dev)
+    hf[:, pad] = 0.0
+    tri = hf[32] > 0.5
+    assert R < 64 or (tri.any() and (~tri).any())
+    return hf
+
+
+@pytest.mark.parametrize("R", [1, 63, 64, 65, 385, 388, 4099, 524288])
+def test_hitrec_kernel_matches_plain(scene, dev, R):
+    """Kernel 3 (one thread a ray, each computing the branch it keeps)
+    bit-equal to its plain version (a NaN where both give one), at one
+    ray, part and whole warps and blocks, R not a multiple of 4, and the
+    frame chunk's width, in one launch."""
+    hf = _hit_stacks(scene, dev, R)
+    before = tfused.HITREC.launches
+    got = tfused.hitrec_fused(hf)
+    torch.cuda.synchronize()
+    assert tfused.HITREC.launches == before + 1
+    want = tfused.hitrec_math(hf)
+    same = (got.view(torch.int32) == want.view(torch.int32)) \
+        | (got.isnan() & want.isnan())
+    assert bool(same.all()), f"{int((~same).sum())} values differ"
+
+
+@pytest.mark.parametrize("R", [1, 31, 32, 33, 385, 388, 4099, 524288])
+def test_shade_vjp_kernel_matches_plain(scene, dev, R):
+    """Kernel 6 (one warp a bulk-copied tile, its sums in shared memory)
+    against autograd of its plain version (``checks.vjp_outside`` on a
+    unit-size cotangent), at one ray, part and whole tiles, a whole tile
+    and one ray more, R not a multiple of 4 (no bulk copy), a ragged last
+    tile with R a multiple of 4, and the frame chunk's width; on the rays
+    with no hit (the pass-through, no forward) equal to the plain VJP;
+    the device-memory path (the same stacks, unaligned) bit-equal to it,
+    and one launch each."""
+    sf, si = _mixed_stacks(scene, dev, R)
+    gen = torch.Generator(device=dev).manual_seed(R)
+    g = checks.unit_cotangent(torch.randn((tfused.NSO, R), generator=gen,
+                                          device=dev))
+    before = tfused.SHADE_BWD.launches
+    got = tfused.shade_bwd(sf, si, g)
+    torch.cuda.synchronize()
+    assert tfused.SHADE_BWD.launches == before + 1
+    want = tfused.shade_vjp_plain(sf, si, g)
+    checks.vjp_outside(got, want)
+    if R >= 4099:
+        assert checks.vjp_check_power(got, want) > 0
+    no_hit = sf[26] <= 0.5
+    assert R < 385 or bool(no_hit.any())
+    assert torch.equal(got[:, no_hit], want[:, no_hit])
+    off = tfused.shade_bwd(_unaligned(sf), _unaligned(si), _unaligned(g))
+    torch.cuda.synchronize()
+    assert tfused.SHADE_BWD.launches == before + 2
+    assert torch.equal(off.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", range(4))
+def test_stack_copy_kernel_matches_plain(scene, dev, shape):
+    """The copy floor's kernel against its plain version, at the stack
+    shapes of kernels 3, 4, 5 and 6 (``fused.COPY_SHAPES``)."""
+    nf, ni, no = tfused.COPY_SHAPES[shape]
     sf, si = _mixed_stacks(scene, dev, 4099)
+    f = sf.repeat(2, 1)[:nf].contiguous()
+    si = si[:ni].contiguous() if ni else None
     before = tfused.STACK_COPY.launches
-    got = tfused.stack_copy(sf, si)
+    got = tfused.stack_copy(f, si, no)
     torch.cuda.synchronize()
     assert tfused.STACK_COPY.launches == before + 1
     assert torch.equal(got.view(torch.int32),
-                       tfused.stack_copy_plain(sf, si).view(torch.int32))
+                       tfused.stack_copy_plain(f, si, no).view(torch.int32))
 
 
 def test_find_any_kernel_matches_plain(scene, dev):

@@ -262,6 +262,76 @@ def test_fused_wrappers_differentiate_like_jax_kernels():
             tfused.SHADE_BWD.launches) == launches
 
 
+@pytest.mark.parametrize("kernel", ["hitrec", "shade"])
+def test_fused_wrappers_skip_the_function_without_a_gradient(kernel):
+    """Where no gradient is asked for (the frame), ``hitrec_fused`` and
+    ``shade_carry_fused`` return a tensor with no autograd node, as the
+    JAX forward; with one they go through their autograd Functions, whose
+    backward is kernel 5 or 6. The values agree either way."""
+    if kernel == "hitrec":
+        stacks = (torch.from_numpy(_hf_stack(7)),)
+        fn, node = tfused.hitrec_fused, "_HitrecFusedBackward"
+    else:
+        F, I = _sf_stack(8)
+        stacks = (torch.from_numpy(F), torch.from_numpy(I))
+        fn, node = tfused.shade_carry_fused, "_ShadeFusedBackward"
+    plain = fn(*stacks)
+    assert plain.grad_fn is None
+    x = stacks[0].clone().requires_grad_(True)
+    with torch.no_grad():
+        assert fn(x, *stacks[1:]).grad_fn is None
+    out = fn(x, *stacks[1:])
+    assert type(out.grad_fn).__name__ == node
+    assert torch.equal(out.detach(), plain)
+
+
+def test_shade_vjp_of_a_ray_without_a_hit_passes_the_carry():
+    """Kernel 6 skips the forward on a ray with no hit (a miss or a dead
+    ray): its VJP is the carry's pass-through (org, dir and thr take their
+    cotangents, rad's goes to rad and, on a miss, to thr and the
+    background) and zero elsewhere. Held here on the plain VJP, on seeded
+    stacks of every material with a third of the rays without a hit, half
+    of those dead."""
+    F, I = _sf_stack(9)
+    r = np.random.default_rng(9)
+    no_hit = r.random(R) < 1 / 3
+    F[26, no_hit] = 0.0
+    F[12, no_hit] = (r.random(int(no_hit.sum())) < 0.5).astype(np.float32)
+    g = _cotangent(40, tfused.NSO)
+    got = tfused.shade_vjp_plain(torch.from_numpy(F), torch.from_numpy(I),
+                                 torch.from_numpy(g)).numpy()[:, no_hit]
+    g, F = g[:, no_hit], F[:, no_hit]
+    miss = F[12] > 0.5
+    want = np.zeros_like(got)
+    want[0:6] = g[0:6]
+    want[6:9] = g[6:9] + np.where(miss, g[9:12] * F[72:75], 0.0)
+    want[9:12] = g[9:12]
+    want[72:75] = np.where(miss, g[9:12] * F[6:9], 0.0)
+    assert miss.any() and (~miss).any()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", range(len(tfused.COPY_SHAPES)))
+def test_stack_copy_plain_sums_rows(shape):
+    """The copy floor's plain version at the stack shapes of kernels 3, 4,
+    5 and 6: out row k is the f32 rows k, k + n_out, ... and the int rows
+    k, k + n_out, ... summed in that order, written out row by row."""
+    nf, ni, no = tfused.COPY_SHAPES[shape]
+    r = np.random.default_rng(shape)
+    f = r.normal(size=(nf, 37)).astype(np.float32)
+    si = r.integers(-5, 5, (ni, 37)).astype(np.int32)
+    want = np.zeros((no, 37), np.float32)
+    for k in range(no):
+        for j in range(k, nf, no):
+            want[k] = want[k] + f[j]
+        for j in range(k, ni, no):
+            want[k] = want[k] + si[j].astype(np.float32)
+    got = tfused.stack_copy(torch.from_numpy(f),
+                            torch.from_numpy(si) if ni else None, no)
+    assert got.shape == (no, 37)
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_vjp_check_fails_wrong_kernels_on_train_step_cotangents(
         monkeypatch, tmp_path):
     """The VJP check on the cotangents of a train step's backward (the

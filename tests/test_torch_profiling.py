@@ -160,3 +160,79 @@ def test_profile_runs_as_a_module():
     assert proc.returncode == 0
     assert "histogram" in proc.stdout and "--device" in proc.stdout
     assert all(c in proc.stdout for c in ("step", "xplane", "bigscene"))
+
+
+@pytest.mark.parametrize("case", [
+    # (registers, threads, shared memory) -> (blocks, warps) an SM
+    ((168, 256, 0), (1, 8)),      # kernel 6 before its redesign
+    ((64, 256, 0), (4, 32)),      # kernel 3, one thread a ray
+    ((40, 256, 0), (6, 48)),      # kernels 3 and 4's copy floor
+    ((110, 256, 0), (2, 16)),     # kernel 6's copy floor
+    ((96, 96, 62256), (3, 9)),    # kernel 4, 64 x 3 ring: shared memory
+    ((128, 32, 12424), (16, 16)),  # kernel 6, one-warp blocks: registers
+])
+def test_occupancy_known_cases(case):
+    """``shade_split.occupancy``: registers in units of 256 a warp, 1 KB of
+    shared memory reserved a block, at most 2,048 threads an SM."""
+    from sexy_raytracer_tpu_torch.tools import shade_split
+
+    (regs, threads, smem), (blocks, warps) = case
+    assert shade_split.occupancy(regs, threads, smem) == (
+        blocks, warps, warps / 64)
+
+
+def test_warp_mix_counts_warps_by_branch():
+    """``shade_split.warp_mix`` on a toy stack: two whole warps of one
+    branch each, one of both, and a part warp of triangle lanes."""
+    from sexy_raytracer_tpu_torch.tools import shade_split
+
+    tri = torch.zeros(32 * 3 + 5)
+    tri[:32] = 1.0
+    tri[64:70] = 1.0
+    tri[96:] = 1.0
+    hf = torch.zeros((34, tri.shape[0]))
+    hf[32] = tri
+    assert shade_split.warp_mix(hf) == {"triangle": 2, "sphere or miss": 1,
+                                        "mixed": 1, "warps": 4}
+    sf = torch.zeros((75, tri.shape[0]))
+    sf[26] = tri
+    assert shade_split.hit_mix(sf) == {"no hit": 1, "warps": 4}
+
+
+def test_ptxas_report_reads_registers_stack_and_spills():
+    """``_cuda.ptxas_report`` on ptxas's -v lines for two kernels."""
+    log = """ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'
+ptxas info    : Function properties for _Z1av
+    328 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 1024 bytes smem, 384 bytes cmem[0]
+"""
+    assert _cuda.ptxas_report(log) == {
+        "_Z1av": dict(registers=168, smem=0, stack=328, spill=8),
+        "_Z1bv": dict(registers=40, smem=1024, stack=0, spill=0)}
+
+
+def test_sass_mix_counts_instructions_by_class():
+    """``shade_split.sass_mix`` on ``cuobjdump -sass`` lines of two
+    functions: predicated instructions count by their opcode, and only the
+    named function is counted."""
+    from sexy_raytracer_tpu_torch.tools import shade_split
+
+    sass = """
+        Function : _Z16shade_bwd_kernelv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/               @P0 FADD R2, R3, R4 ;
+        /*0020*/              @!P1 MUFU.RCP R2, R3 ;
+        /*0030*/                   LDL.64 R2, [R1] ;
+        /*0040*/                   LDS R5, [R6] ;
+        /*0050*/                   BRA 0x40;
+        Function : _Z13hitrec_kernelv
+        /*0000*/                   FADD R2, R3, R4 ;
+"""
+    assert shade_split.sass_mix(sass, "shade_bwd_kernel") == {
+        "_Z16shade_bwd_kernelv": {
+            "instructions": 6, "f32": 1, "mufu": 1, "lds": 1, "sts": 0,
+            "local": 1, "global": 0, "branch": 1}}
