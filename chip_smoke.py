@@ -75,10 +75,16 @@ nonzero without a result line:
      ``checks.hard_wavefronts``: most lanes dying on the ground sphere,
      whole blocks dead, and rays through vertices and edges that clusters
      share (exact ties), kernel 2's flags also equal to those that
-     kernel 8's closest hits imply (``checks.occlusion_by_closest_hit``); the brute-force find (kernel 9) on the
-     bounce-1 sub-wavefront and the fuzz wavefront, and timed on the
-     n = 39 stand-in with the mid chunk's 524,288 camera rays after a
-     counted run of its own path, ``find_hit(method="pallas_mxu")``;
+     kernel 8's closest hits imply (``checks.occlusion_by_closest_hit``);
+     the brute-force find (kernel 9) bit for bit
+     against its plain version (t bits and ids) on the bounce-0 and
+     bounce-1 sub-wavefronts and the fuzz wavefront, timed on bounce 1
+     and on the n = 39 stand-in with the mid chunk's 524,288 camera rays
+     after a counted run of its own path, ``find_hit(method="pallas_mxu")``,
+     with the slices and blocks its wrapper launched, its bound from the
+     operations the data needs, and its SASS instructions a test (in
+     full, and where the warp stops at each vote; null where the reading
+     finds no loop);
    * four referees (streamed, resident on block-culled lists, BVH,
      bruteforce) agree on 65,536 tile-ordered primary rays, with kernel
      1's and kernel 8's times and tests at that shape;
@@ -135,9 +141,6 @@ F32_FLOPS_PER_S = 67e12
 # multiplies, adds, subtractions, negations and the divide
 OPS_PER_PAIR = 37
 OPS_PER_SPHERE_TEST = 31
-# kernel 9 (csrc/find.cu tri_brute_kernel): two 4-deep products for each
-# of four column groups (56), the negation and divide, three edges (6)
-OPS_PER_BRUTE_PAIR = 64
 # the big scene: the tools/profile.py terrain, 2 * 389^2 triangles
 BIG_N, BIG_SPP = 389, 8
 
@@ -234,7 +237,11 @@ def main(argv=None) -> int:
     from sexy_raytracer_tpu_torch.ops.intersect import find_hit
     from sexy_raytracer_tpu_torch.render import integrator, renderer
     from sexy_raytracer_tpu_torch.render.camera import Camera
-    from sexy_raytracer_tpu_torch.tools import histogram_split, shade_split
+    from sexy_raytracer_tpu_torch.tools import (
+        find_split,
+        histogram_split,
+        shade_split,
+    )
     from sexy_raytracer_tpu_torch.tools.histogram_split import (
         TRAIN_PIXELS,
         TRAIN_SPB,
@@ -1019,22 +1026,33 @@ def main(argv=None) -> int:
     def check_tri_brute(inp):
         t_k, i_k = brute.tri_brute(*inp)
         t_p, i_p = brute.tri_brute_plain(*inp)
-        dis = i_k != i_p
-        n_dis = int(dis.sum())
-        if n_dis and not bool(near_tie(t_k[dis], t_p[dis]).all()):
-            raise AssertionError(f"tri_brute: {n_dis} ids differ beyond the "
-                                 f"near-tie rule ({FIND_TIE})")
-        same = ~dis & (i_k >= 0)
-        err = float((t_k[same] - t_p[same]).abs().max()) if same.any() \
-            else 0.0
-        return err, n_dis, f"{n_dis} of {i_k.numel()} triangle ids differ " \
-                           f"(near ties), {int((i_k >= 0).sum())} hits"
+        n_dis = int((i_k != i_p).sum())
+        n_bits = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+        if n_dis or n_bits:
+            raise AssertionError(f"tri_brute: {n_dis} ids and {n_bits} t "
+                                 "values differ from the plain version")
+        return 0.0, 0, f"t bit-equal, ids equal, " \
+                       f"{int((i_k >= 0).sum())} hits of {i_k.numel()} rays"
+
+    def brute_launched(rays):
+        """{slices, blocks} of kernel 9's last launch, as its wrapper
+        recorded them; that launch must have been over ``rays`` rays."""
+        last = dict(brute.LAST_LAUNCH)
+        if last.get("rays") != rays:
+            raise AssertionError(f"tri_brute: last launch {last}, not over "
+                                 f"{rays} rays")
+        return dict(slices=last["slices"], blocks=last["blocks"])
 
     def brute_bound(inp):
-        org4, dir4, w, _ = inp
+        """The bytes read and written once, and the float32 operations this
+        data needs (``find_split.brute_scan_counts``: the plane group of
+        each real pair, the divide where plane_ok, the edges in range)."""
+        org4, dir4, w, t_min = inp
         pairs = org4.shape[0] * (w.shape[1] // 4)
-        return bytes_of(org4, dir4, w) + org4.shape[0] * 8, \
-            pairs * OPS_PER_BRUTE_PAIR, f"{pairs} (ray, triangle) tests"
+        ops = find_split.brute_scan_counts(*inp)["needed_ops"]
+        return bytes_of(org4, dir4, w) + org4.shape[0] * 8, ops, \
+            f"{pairs} (ray, triangle) tests, {ops / pairs:.2f} needed " \
+            f"operations a test"
 
     def brute_inputs(org, dir):
         return (*brute.ray4(org, dir), brute.build_weights(big), 0.001)
@@ -1102,13 +1120,15 @@ def main(argv=None) -> int:
                check_tri_brute, "big bounce 0")
     check_only("tri_brute", brute_inputs(fo, fd), check_tri_brute,
                "big fuzz")
-    rec = record("tri_brute", brute.TRI_BRUTE,
-                 brute_inputs(sub_rays["bounce 1"][:, 0:3],
-                              sub_rays["bounce 1"][:, 3:6]),
-                 check_tri_brute, brute.tri_brute, brute.tri_brute_plain,
-                 brute_bound, "big bounce 1", 5, 3)
+    inp9b = brute_inputs(sub_rays["bounce 1"][:, 0:3],
+                         sub_rays["bounce 1"][:, 3:6])
+    rec = record("tri_brute", brute.TRI_BRUTE, inp9b, check_tri_brute,
+                 brute.tri_brute, brute.tri_brute_plain, brute_bound,
+                 "big bounce 1", 5, 3)
     big_brute = {k: rec[k] for k in (
         "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    big_brute.update(brute_launched(inp9b[0].shape[0]))
+    del inp9b
     # kernel 9 where its comparison meant something: the n = 39 stand-in
     # and the mid chunk's 524,288 camera rays, on its own path
     # find_hit(method="pallas_mxu") with the launch counters read
@@ -1122,11 +1142,38 @@ def main(argv=None) -> int:
     if counts9 != want9:
         raise AssertionError(f"launch counts {counts9} != {want9}")
     inp9 = (*brute.ray4(o9, d9), brute.build_weights(scene), 0.001)
+    shape9 = brute_launched(inp9[0].shape[0])      # the path's own launch
     records["tri_brute"] = record("tri_brute", brute.TRI_BRUTE, inp9,
                                   check_tri_brute, brute.tri_brute,
                                   brute.tri_brute_plain, brute_bound,
                                   "n=39 camera", 20, 3)
     records["tri_brute"]["big"] = big_brute
+    records["tri_brute"].update(shape9)
+    log(f"kernel tri_brute: {shape9['slices']} slice(s) in "
+        f"{shape9['blocks']} blocks on n=39 camera rays (pallas_mxu), "
+        f"{big_brute['slices']} in {big_brute['blocks']} on big bounce 1")
+    # the SASS of its test loops (the first is the one ray4's rays run):
+    # a reading of the compiler's output, null where it finds no loop
+    try:
+        sass9 = find_split.brute_sass(subprocess.run(
+            [os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump"),
+             "-sass", info["path"]], capture_output=True, text=True,
+            check=True).stdout, rays_per_lane=brute.RAYS_PER_LANE)
+    except (OSError, subprocess.CalledProcessError) as e:
+        log(f"kernel tri_brute: no SASS ({e})")
+        sass9 = []
+    records["tri_brute"]["sass_per_test"] = None
+    if sass9:
+        records["tri_brute"]["sass_per_test"] = dict(
+            full=sass9[0]["full_per_test"]["instructions"],
+            stop=sass9[0]["stop_per_test"])
+        log(f"kernel tri_brute: SASS instructions a test of ray4's rays "
+            f"{json.dumps(sass9[0]['full_per_test'])} in full, "
+            f"{sass9[0]['stop_per_test']} where the warp stops at each vote "
+            f"(the first: it skips the triangle)")
+    else:
+        log("kernel tri_brute: no test loop found in the SASS; "
+            "sass_per_test is null")
     records["tri_brute"]["launches_by_path"] = {
         "pallas_mxu": counts9["srt_tri_brute"]}
     records["tri_brute"]["launches"] = counts9["srt_tri_brute"]

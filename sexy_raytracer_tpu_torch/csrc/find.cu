@@ -1,11 +1,12 @@
 // Ray queries for Hopper: the closest hit and the any hit over culled
-// cluster worklists (one cluster walk), and the brute-force triangle search.
+// cluster worklists (one cluster walk). The brute-force triangle search
+// (kernel 9) is csrc/brute.cu.
 //
 // Replaces the TPU kernels _find_kernel (sexy_raytracer_tpu/ops/pallas_find.py:170),
-// _occluded_kernel (pallas_find.py:681), _find_streamed_kernel
-// (pallas_find.py:893) and _tri_kernel (ops/pallas_intersect.py:53). Layouts
-// are documented in sexy_raytracer_tpu_torch/ops/find.py and ops/brute.py;
-// the plain PyTorch versions there are the specification.
+// _occluded_kernel (pallas_find.py:681) and _find_streamed_kernel
+// (pallas_find.py:893). Layouts are documented in
+// sexy_raytracer_tpu_torch/ops/find.py; the plain PyTorch versions there
+// are the specification.
 //
 // The resident closest hit (kernel 1, 128-ray blocks over the per-ray
 // cull's lists), the streamed closest hit (kernel 8, 256-ray blocks over the
@@ -52,8 +53,6 @@
 namespace {
 
 constexpr int RAY_BLOCK = 128;
-constexpr int BRUTE_BLOCK = 256;     // rays per block of the brute search
-constexpr int TRI_TILE = 512;        // triangles per tile of its weights
 constexpr int MAX_CK = 512;
 constexpr float BIG = (float)3.0e38;  // rounded from the double, as torch
 constexpr float EPS = 1.1920928955078125e-07f;  // FLT_EPSILON
@@ -616,63 +615,6 @@ regroup_scatter_kernel(const float* __restrict__ org,
   cull_t_max[dst] = is_live ? v[8] : 0.0f;
 }
 
-// --- brute-force closest triangle (pallas_intersect.py:53-95) ----------------
-//
-// w is [4, 4 Tpad], each TRI_TILE-triangle tile's columns grouped as
-// [n | q0 | q1 | q2]. One thread per ray; the block stages one tile's
-// [4, 4 TRI_TILE] weights (32 KB) at a time.
-
-__global__ void __launch_bounds__(BRUTE_BLOCK)
-tri_brute_kernel(const float* __restrict__ org4,
-                 const float* __restrict__ dir4, const float* __restrict__ w,
-                 int n_tiles, float t_min, float* __restrict__ out_t,
-                 int* __restrict__ out_i) {
-  __shared__ __align__(16) float ws[4 * 4 * TRI_TILE];
-  const int r = blockIdx.x * BRUTE_BLOCK + threadIdx.x;
-  const float ox = org4[4 * r], oy = org4[4 * r + 1], oz = org4[4 * r + 2],
-              ow = org4[4 * r + 3];
-  const float dx = dir4[4 * r], dy = dir4[4 * r + 1], dz = dir4[4 * r + 2],
-              dw = dir4[4 * r + 3];
-  const size_t width = (size_t)n_tiles * 4 * TRI_TILE;
-  constexpr int TW = 4 * TRI_TILE;  // columns of one tile
-
-  float best_t = BIG;
-  int best_i = -1;
-  for (int k = 0; k < n_tiles; ++k) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < TW; i += BRUTE_BLOCK) {  // float4 columns
-      const int row = i / (TW / 4), col = 4 * (i % (TW / 4));
-      *reinterpret_cast<float4*>(ws + row * TW + col) =
-          *reinterpret_cast<const float4*>(w + row * width +
-                                           (size_t)k * TW + col);
-    }
-    __syncthreads();
-    // strict '<' in column order: the lowest index wins a tie in a tile,
-    // the earlier tile wins a tie across tiles
-    for (int j = 0; j < TRI_TILE; ++j) {
-      float av[4], bv[4];
-      for (int g = 0; g < 4; ++g) {
-        const int col = g * TRI_TILE + j;
-        const float w0 = ws[col], w1 = ws[TW + col], w2 = ws[2 * TW + col],
-                    w3 = ws[3 * TW + col];
-        av[g] = ox * w0 + oy * w1 + oz * w2 + ow * w3;
-        bv[g] = dx * w0 + dy * w1 + dz * w2 + dw * w3;
-      }
-      const bool plane_ok = bv[0] <= -EPS;
-      const float t = -av[0] / (plane_ok ? bv[0] : 1.0f);
-      const bool valid = plane_ok && (av[1] + t * bv[1] >= 0.0f) &&
-                         (av[2] + t * bv[2] >= 0.0f) &&
-                         (av[3] + t * bv[3] >= 0.0f) && (t >= t_min);
-      if (valid && t < best_t) {
-        best_t = t;
-        best_i = k * TRI_TILE + j;
-      }
-    }
-  }
-  out_t[r] = best_t;
-  out_i[r] = best_t < BIG ? best_i : -1;
-}
-
 }  // namespace
 
 extern "C" {
@@ -754,18 +696,6 @@ int srt_find_streamed(const int* lists, int list_stride, const float* rays,
   return static_cast<int>(launch_closest<STREAM_WARPS, WALK_STAGES, RPT>(
       lists, list_stride, rays, tri_pack, n_clusters, ck, boxes, sph_pack,
       n_sph_pad, n_tris, n_blocks, out_t, out_i, (cudaStream_t)stream));
-}
-
-int srt_tri_brute(const float* org4, const float* dir4, const float* w,
-                  int n_tiles, float t_min, int ray_block, int n_blocks,
-                  float* out_t, int* out_i, void* stream) {
-  if (ray_block != BRUTE_BLOCK || n_tiles < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks > 0) {
-    tri_brute_kernel<<<n_blocks, BRUTE_BLOCK, 0, (cudaStream_t)stream>>>(
-        org4, dir4, w, n_tiles, t_min, out_t, out_i);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

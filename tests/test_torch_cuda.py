@@ -644,6 +644,74 @@ def test_tri_brute_kernel_matches_plain(scene, dev):
     assert (i_k >= 0).sum() > 100
 
 
+def _brute_case(case, scene, big_scene, dev):
+    """Kernel 9's (org4, dir4, w) for one card case: the flagship
+    stand-in's fuzz rays; camera rays over its relief tile copied into 8
+    tiles (every hit ties across tiles and slices: the lowest id wins);
+    the same with non-finite w3 words in three triangles (their stages take
+    the general products); the fuzz rays with w 0.75 / -0.25 (no ray4
+    rays: the general products everywhere); the big scene's hard
+    wavefronts ("dead blocks" has the rays of "sphere": kernel 9 takes one
+    scalar t_min)."""
+    if case in checks.hard_wavefronts(big_scene):
+        org, d = checks.hard_wavefronts(big_scene)[case][:2]
+        return (*tbrute.ray4(org, d), tbrute.build_weights(big_scene))
+    if case in ("fuzz", "general rays"):
+        org, d, _, _ = _fuzz(8192, dev, seed=5)
+        org4, dir4 = tbrute.ray4(org, d)
+        if case == "general rays":
+            org4[:, 3], dir4[:, 3] = 0.75, -0.25
+        return org4, dir4, tbrute.build_weights(scene)
+    r = np.random.default_rng(8)
+    tgt = np.stack([r.uniform(-1.6, 1.6, 5000), r.uniform(0.9, 4.1, 5000),
+                    np.zeros(5000)], axis=1)
+    d = tgt - np.array([0.0, 3.0, 5.0])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    org4, dir4 = tbrute.ray4(
+        torch.full((5000, 3), 0.0, device=dev) + torch.tensor(
+            [0.0, 3.0, 5.0], device=dev),
+        torch.tensor(d, dtype=torch.float32, device=dev))
+    one = tbrute.build_weights(scene)[:, :4 * tbrute.TRI_TILE]
+    w = torch.cat([one] * 8, dim=1).contiguous()
+    if case == "non-finite w3":
+        w[3, 5] = float("inf")
+        w[3, 4 * tbrute.TRI_TILE + 700] = -float("inf")
+        w[3, 9 * tbrute.TRI_TILE + 9] = float("nan")
+    return org4, dir4, w
+
+
+@pytest.mark.parametrize("t_min", [0.001, 0.5])
+@pytest.mark.parametrize("slices", [None, 1, 5])
+@pytest.mark.parametrize("case", ["fuzz", "duplicates", "non-finite w3",
+                                  "general rays", "sphere", "ties"])
+def test_tri_brute_kernel_cases(scene, big_scene, dev, case, slices, t_min):
+    """Kernel 9 bit-equal to ``tri_brute_plain`` (t bits and ids), one C
+    call a call, its shape recorded in ``LAST_LAUNCH``, with the slice
+    count of ``launch_shape`` (None), without a split (1) and with five
+    slices forced; on the stand-in's fuzz rays, on copies of one tile,
+    where ties must go to the lowest id, on stages with non-finite
+    weights, on rays that are not ray4's, and on the big scene's hard
+    wavefronts; at two t_min. (Hits: 6 to 7,405 a case.)"""
+    org4, dir4, w = _brute_case(case, scene, big_scene, dev)
+    before = tbrute.TRI_BRUTE.launches
+    t_k, i_k = tbrute.tri_brute(org4, dir4, w, t_min, _slices=slices)
+    torch.cuda.synchronize()
+    assert tbrute.TRI_BRUTE.launches == before + 1
+    n_tiles = w.shape[1] // (4 * tbrute.TRI_TILE)
+    ray_blocks, want = tbrute.launch_shape(
+        org4.shape[0], n_tiles,
+        torch.cuda.get_device_properties(dev).multi_processor_count, slices)
+    assert tbrute.LAST_LAUNCH == dict(rays=org4.shape[0], slices=want,
+                                      blocks=ray_blocks * want)
+    assert slices is None or want == min(n_tiles, slices)
+    t_p, i_p = tbrute.tri_brute_plain(org4, dir4, w, t_min)
+    assert torch.equal(i_k, i_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert int((i_k >= 0).sum()) > 0
+    if case == "duplicates":
+        assert int(i_k.max()) < tbrute.TRI_TILE
+
+
 def test_place_kernel_matches_plain(dev):
     """Kernel 10 bit-equal to ``place_plain`` and to itself on the same
     glue outputs: C 1 to 16, a short last window, n_bins no multiple of
