@@ -116,6 +116,30 @@ nonzero without a result line:
      the profiler's device events name every ctypes kernel of the train
      step and the sorted histogram; the phase's seconds.
 
+9. inverse rendering on the card (``inverse_render``, ``Camera.from_params``,
+   ``sphere_silhouette_loss``), on the stand-in at 1280x720, 4 bounces:
+   * the target is the port's own 16-spp render of the true scene (seed
+     7); the atlas's colour channels are perturbed to ``x * 0.3 + 90``
+     and only they train (a channel mask), in an ROI around the relief
+     (tools/run_inverse_experiment.py phase 1);
+   * a common-random-numbers run of 50 steps of 8,192 pixels at spb 16
+     (131,072 paths a step), lr 1e-2, after a 2-step warm-up call, with
+     the launch counters reset before it and read after it: phase 6's
+     counts per step, kernel 5 three times (bounce 0's hit record needs
+     no gradient when only the atlas trains), no other kernel; finite
+     losses, the last 10 below the first 5 on average, the ROI MSE of a
+     16-spp re-render lower than the perturbed scene's, channels 3-7
+     bit-equal, channels 0-2 moved; ms a step (the call / 50), Mrays/s,
+     the same steps bare (no loop) and the gap to phase 6's step;
+   * five steps of stage A of the run's phase 1b: the tile-averaged
+     linear loss against the linear target, an 8x coarser atlas delta
+     upsampled by a ``param_transform``; finite, the delta moved;
+   * the camera gradients of tests/test_grad.py:101-150 on the card
+     against the same on CPU tensors (relative loss 1e-3, gradient 1e-2);
+   * the silhouette gradient of the iron sphere displaced 0.2 radii in the
+     image plane, n_edge 256, on the card against CPU tensors (relative
+     1e-2), finite and nonzero, and its time a call.
+
 The last three lines are the kernels' JSON record, nvidia-smi's
 "name, power.limit" line, and ``{"ok": true, "device": {...}}``.
 """
@@ -199,6 +223,257 @@ def elementwise_ops_per_ray(torch, fn, stacks):
     with Count():
         fn(*cpu)
     return Count.ops / 256
+
+
+# phase 9: the inverse loop (tools/run_inverse_experiment.py phase 1 and
+# stage A of phase 1b at the bench's train width)
+INV_SEED, INV_SPB, INV_PIXELS, INV_STEPS = 7, 16, 8192, 50
+COARSE = 8  # the coarse atlas delta's factor (run_inverse_experiment.py:211)
+
+
+def resolved_of(torch, acc, spp):
+    """Accumulated radiance -> the gamma-2 resolve, clamped to [0, 0.999]
+    (inverse.py's loss and tools/run_inverse_experiment.py's target)."""
+    return torch.clamp(torch.sqrt(torch.clamp(acc / spp, min=1e-8)), 0.0,
+                       0.999)
+
+
+def inverse_phase(torch, dev, scene, cfg, relief, train_per_step, step6_s,
+                  reset_counts, read_counts, smi):
+    """Phase 9: ``inverse_render`` and ``sphere_silhouette_loss`` on the
+    stand-in at 1280x720, 4 bounces, with the kernels on the card.
+
+    ``relief``: [H, W] bool, the pixels whose primary ray hits the mesh.
+    ``train_per_step``: phase 6's launch counts per train step; ``step6_s``
+    its seconds per step. Returns the CRN run's launch counts.
+    """
+    import dataclasses
+
+    from sexy_raytracer_tpu_torch.diff import (
+        extract_params,
+        inverse_render,
+        sphere_silhouette_loss,
+    )
+    from sexy_raytracer_tpu_torch.diff.inverse import (
+        _loss_fn,
+        make_optimizer,
+        make_train_step,
+        sample_tile_ids,
+    )
+    from sexy_raytracer_tpu_torch.models.scene import SceneBuilder
+    from sexy_raytracer_tpu_torch.render import renderer
+    from sexy_raytracer_tpu_torch.render.camera import Camera
+    from sexy_raytracer_tpu_torch.render.integrator import (
+        scene_no_emissive_tris,
+    )
+    from sexy_raytracer_tpu_torch.utils import rng
+    from sexy_raytracer_tpu_torch.utils.mathx import clip
+
+    t9 = time.perf_counter()
+    W, H = cfg.width, cfg.height
+    cfg16 = dataclasses.replace(cfg, samples_per_pixel=INV_SPB, seed=INV_SEED)
+    cam16 = Camera.from_config(cfg16.camera, cfg16.aspect, device=dev)
+
+    def render16(sc):
+        return torch.from_numpy(renderer.render_accumulate(sc, cfg16)).to(dev)
+
+    # the target: the port's own 16-spp render of the true scene
+    t0 = time.perf_counter()
+    target_lin = render16(scene)
+    target = resolved_of(torch, target_lin, INV_SPB)
+    target_s = time.perf_counter() - t0
+    rows = torch.nonzero(relief.any(dim=1))[:, 0]
+    cols = torch.nonzero(relief.any(dim=0))[:, 0]
+    roi = (max(int(rows[0]) - 8, 0), min(int(rows[-1]) + 9, H),
+           max(int(cols[0]) - 8, 0), min(int(cols[-1]) + 9, W))
+
+    # the perturbation of run_inverse_experiment.py:78-98 and its mask
+    true_atlas = scene.shade_atlas
+    pert_atlas = true_atlas.clone()
+    pert_atlas[..., 0:3] = clip(true_atlas[..., 0:3] * 0.3 + 90.0, 0.0,
+                                255.0)
+    perturbed = scene._replace(shade_atlas=pert_atlas)
+    chan = torch.zeros((1, 1, 1, 8), device=dev)
+    chan[..., 0:3] = 1.0
+    kw = dict(pixels_per_step=INV_PIXELS, spb=INV_SPB, learning_rate=1e-2,
+              seed=7, trainable=("shade_atlas",),
+              grad_masks={"shade_atlas": chan}, roi=roi, loss_type="mse",
+              crn_key=rng.key(INV_SEED, dev), progress=False)
+    inverse_render(perturbed, target, cfg16, n_steps=2, **kw)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    opt, losses = inverse_render(perturbed, target, cfg16,
+                                 n_steps=INV_STEPS, **kw)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / INV_STEPS
+    counts = read_counts()
+    # phase 6's counts per step, but kernel 5 at bounces 1-3 only: with the
+    # atlas the one trained field, bounce 0's hit record has no input that
+    # needs a gradient (the camera and the geometry are constants)
+    expect = {k: INV_STEPS * v for k, v in train_per_step.items()}
+    expect["srt_hitrec_bwd"] = INV_STEPS * (train_per_step["srt_hitrec_bwd"]
+                                            - 1)
+    log(f"inverse launches over {INV_STEPS} CRN steps: {counts} (expected "
+        f"{expect}: phase 6's per step, kernel 5 at bounces 1-3)")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+
+    first5, last10 = float(np.mean(losses[:5])), float(np.mean(losses[-10:]))
+    r0, r1, c0, c1 = roi
+
+    def roi_mse(sc):
+        img = resolved_of(torch, render16(sc), INV_SPB)
+        return float(((img - target)[r0:r1, c0:c1] ** 2).mean())
+
+    mse_pert, mse_opt = roi_mse(perturbed), roi_mse(opt)
+    same37 = torch.equal(opt.shade_atlas[..., 3:], true_atlas[..., 3:])
+    moved = float((opt.shade_atlas[..., 0:3] - pert_atlas[..., 0:3]).abs()
+                  .max())
+    rays = INV_PIXELS * INV_SPB * cfg.max_bounce
+    log(f"inverse CRN run: {INV_STEPS} steps of {INV_PIXELS} pixels x spb "
+        f"{INV_SPB} in ROI {roi} (target {target_s:.2f} s); losses "
+        f"first 5 {first5:.6g}, last 10 {last10:.6g}; ROI MSE of a 16-spp "
+        f"re-render: perturbed {mse_pert:.6g}, result {mse_opt:.6g}; atlas "
+        f"channels 3-7 bit-equal: {same37}, channels 0-2 moved (max abs) "
+        f"{moved:.4g}")
+    if not np.isfinite(losses).all() or not last10 < first5 \
+            or not mse_opt < mse_pert or not same37 or not moved > 0.0:
+        raise AssertionError("the CRN inverse run did not converge as "
+                             "required")
+
+    # the bare steps of the same run (optimiser, masks, key, and the
+    # loop's tile draws with their target rows, made and uploaded first)
+    # without the loop around them
+    params = {"shade_atlas": pert_atlas}
+    bare = make_train_step(
+        cfg16, make_optimizer(params, 1e-2, decay_steps=INV_STEPS),
+        spb=INV_SPB, grad_masks={"shade_atlas": chan},
+        last_bounce_vis=scene_no_emissive_tris(scene))
+    draws = np.random.default_rng(kw["seed"])
+    ids = [torch.from_numpy(sample_tile_ids(draws, W, H, INV_PIXELS,
+                                            roi=roi)).to(dev)
+           for _ in range(INV_STEPS)]
+    tgts = [target.reshape(-1, 3)[i] for i in ids]
+    st = bare.init(params)
+    for i in range(2):
+        st, _ = bare(st, perturbed, cam16, ids[i], tgts[i], kw["crn_key"])
+    st = bare.init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(INV_STEPS):
+        st, _ = bare(st, perturbed, cam16, ids[i], tgts[i], kw["crn_key"])
+    torch.cuda.synchronize()
+    bare_s = (time.perf_counter() - t0) / INV_STEPS
+    log(f"inverse step: {step_s * 1e3:.3f} ms, "
+        f"{rays / step_s / 1e6:.2f} Mrays/s ({INV_PIXELS} pixels x spb "
+        f"{INV_SPB} x {cfg.max_bounce} bounces, the {INV_STEPS}-step call "
+        f"synchronized / {INV_STEPS}, host clock); the same step bare "
+        f"{bare_s * 1e3:.3f} ms, loop overhead {(step_s - bare_s) * 1e3:.3f}"
+        f" ms; phase 6's step {step6_s * 1e3:.3f} ms, gap "
+        f"{(step_s - step6_s) * 1e3:.3f} ms; {smi}")
+
+    # stage A of phase 1b: no CRN, the tile-averaged linear loss against
+    # the linear target, optimising an 8x coarser atlas delta
+    L, AH, AW, _ = pert_atlas.shape
+
+    def transform_a(p):
+        delta = p["d8"].repeat_interleave(COARSE, 1) \
+            .repeat_interleave(COARSE, 2)
+        atlas = torch.cat([pert_atlas[..., 0:3] + delta, pert_atlas[..., 3:]],
+                          dim=-1)
+        return {"shade_atlas": clip(atlas, 0.0, 255.0)}
+
+    d8 = torch.zeros((L, AH // COARSE, AW // COARSE, 3), device=dev)
+    opt_a, losses_a = inverse_render(
+        perturbed, target_lin / INV_SPB, cfg16, n_steps=5,
+        pixels_per_step=INV_PIXELS, spb=INV_SPB, learning_rate=0.5, seed=13,
+        init_params={"d8": d8}, param_transform=transform_a, roi=roi,
+        loss_type="tile_linear", huber_delta=0.5, progress=False)
+    moved_a = float((opt_a.shade_atlas[..., 0:3] - pert_atlas[..., 0:3])
+                    .abs().max())
+    log(f"inverse non-CRN run (tile_linear, coarse {COARSE}x delta "
+        f"{tuple(d8.shape)}, 5 steps): losses "
+        + ", ".join(f"{x:.6g}" for x in losses_a)
+        + f"; atlas colour moved (max abs) {moved_a:.4g}")
+    if not np.isfinite(losses_a).all() or not moved_a > 0.0 \
+            or not torch.equal(opt_a.shade_atlas[..., 3:],
+                               pert_atlas[..., 3:]):
+        raise AssertionError("the non-CRN inverse run failed")
+
+    # camera gradients (tests/test_grad.py:101-150) on the card against
+    # the same on CPU tensors, bench.py:192's gate
+    def camera_grads(device):
+        b = SceneBuilder()
+        b.add_sphere((0, 0, 0), 1.0,
+                     b.add_pbr_material(base_color=(0.7, 0.6, 0.5, 1.0),
+                                        metallic=0.2, roughness=0.5))
+        sc = b.build(build_bvh=False, device=device)
+        eye = torch.tensor([0.0, 0.0, 4.0], device=device, requires_grad=True)
+        vfov = torch.tensor(40.0, device=device, requires_grad=True)
+        cam = Camera.from_params(eye, torch.zeros(3, device=device),
+                                 torch.tensor([0.0, 1.0, 0.0], device=device),
+                                 vfov, 1.0, 0.0, 4.0)
+        pix = torch.tensor([16 * 7 + 7, 16 * 7 + 8, 16 * 8 + 7, 16 * 8 + 8],
+                           dtype=torch.int32, device=device)
+        loss = _loss_fn(extract_params(sc, ("mat_base_color",)), sc, cam,
+                        pix, torch.full((4, 3), 0.5, device=device), 0,
+                        rng.key(1, device),
+                        torch.tensor((0.6, 0.7, 0.8), device=device),
+                        width=16, height=16, spb=4, spp_total=4,
+                        max_bounce=2, method="auto")
+        g = torch.autograd.grad(loss, [eye, vfov])
+        return float(loss.detach()), [x.detach().cpu().double() for x in g]
+
+    loss_k, g_k = camera_grads(dev)
+    loss_p, g_p = camera_grads("cpu")
+    rel_v = abs(loss_k - loss_p) / max(abs(loss_p), 1e-12)
+    rel_g = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+             for a, b in zip(g_k, g_p)]
+    log(f"camera gradients (card vs CPU): loss {loss_k:.6f} vs {loss_p:.6f}"
+        f", rel {rel_v:.2e}; d/d eye {g_k[0].tolist()} vs {g_p[0].tolist()},"
+        f" d/d vfov {float(g_k[1]):.6g} vs {float(g_p[1]):.6g}; rel grad "
+        f"{rel_g[0]:.2e}, {rel_g[1]:.2e}")
+    if rel_v > 1e-3 or max(rel_g) > 1e-2 or float(g_p[0].abs().max()) == 0:
+        raise AssertionError("camera gradient gate failed")
+
+    # the silhouette gradient of the iron sphere, displaced 0.2 radii in
+    # the image plane, against the true target
+    iron = int(torch.nonzero((scene.sph_c0.cpu() == torch.tensor(
+        [-3.0, 1.0, 0.0])).all(dim=1))[0, 0])
+    radius = float(scene.sph_radius[iron])
+    shift = 0.2 * radius * (0.8 * cam16.u_axis + 0.6 * cam16.v_axis)
+    center = scene.sph_c0[iron] + shift
+
+    def silhouette(device):
+        sc = scene.to(device)
+        c = center.to(device).clone().requires_grad_(True)
+
+        def put(field):
+            return torch.cat([field[:iron], c[None], field[iron + 1:]])
+
+        sc = sc._replace(sph_c0=put(sc.sph_c0), sph_c1=put(sc.sph_c1))
+        loss = sphere_silhouette_loss(
+            sc, Camera.from_config(cfg16.camera, cfg16.aspect, device=device),
+            target.to(device), [iron], rng.key(INV_SEED, device), width=W,
+            height=H, max_bounce=cfg.max_bounce, background=cfg.background,
+            n_edge=256)
+        (g,) = torch.autograd.grad(loss, c)
+        return float(loss.detach()), g.detach().cpu().double()
+
+    value, g_sk = silhouette(dev)
+    _, g_sp = silhouette("cpu")
+    sil_ms = time_ms(torch, lambda: silhouette(dev), 5)
+    rel_s = float((g_sk - g_sp).norm() / max(float(g_sp.norm()), 1e-30))
+    log(f"silhouette (iron sphere {iron} moved {shift.tolist()}, n_edge "
+        f"256, {W}x{H}): value {value}, grad card {g_sk.tolist()} vs CPU "
+        f"{g_sp.tolist()}, rel {rel_s:.2e}; {sil_ms:.3f} ms a call with its "
+        f"gradient (median of 5, CUDA events, {smi})")
+    if not bool(torch.isfinite(g_sk).all()) or float(g_sk.norm()) == 0.0 \
+            or rel_s > 1e-2:
+        raise AssertionError("silhouette gradient gate failed")
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -834,7 +1109,8 @@ def main(argv=None) -> int:
     v = ((H - (pid // W).float()) + ucam[:, 1]) / (H - 1)
     o, d, tm = camera.get_rays(u, v, ucam[:, 2:5])
     prim, _ = find_hit(scene, o, d, tm)
-    tri_share = float(((prim >= 0) & (prim < T)).float().mean())
+    relief = ((prim >= 0) & (prim < T)).reshape(H, W)
+    tri_share = float(relief.float().mean())
     log(f"frame: {W}x{H}, mean {img.mean():.2f}, std {img.std():.2f}, "
         f"finite radiance, repeatable; primary rays hitting a triangle "
         f"{100 * tri_share:.2f}%")
@@ -906,6 +1182,7 @@ def main(argv=None) -> int:
     log(f"train launches over {n_steps} steps: {counts} (expected {expect})")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
+    train_per_step = {k: v // n_steps for k, v in expect.items()}
     for name, c in kernel_checks.items():
         records[name]["launches_by_path"]["train"] = counts[c[3].symbol]
         records[name]["launches"] = records[name]["launches_by_path"][
@@ -1516,6 +1793,12 @@ def main(argv=None) -> int:
         raise AssertionError(f"_bigscene_one failed: {big_rows}")
     records["place"]["tools"] = dict(step=step_rows, bigscene=big_rows)
     log(f"phase 8: {time.perf_counter() - t8:.1f} s")
+
+    # ---- 9. inverse rendering on the card --------------------------------
+    counts = inverse_phase(torch, dev, scene, cfg, relief, train_per_step,
+                           step_s, reset_counts, read_counts, smi)
+    for name, c in kernel_checks.items():
+        records[name]["launches_by_path"]["inverse"] = counts[c[3].symbol]
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile

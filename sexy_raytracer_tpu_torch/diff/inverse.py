@@ -1,15 +1,20 @@
-"""The differentiable train step: loss, gradients and Adam (counterpart of
-``sexy_raytracer_tpu/diff/inverse.py:38-362``).
+"""Inverse rendering: the differentiable train step, Adam and the loop
+that fits scene parameters to a target image (counterpart of
+``sexy_raytracer_tpu/diff/inverse.py``).
 
 The loss renders a random pixel subset at low spp, resolves it like the
 forward pipeline and compares it with the target pixels. Gradients flow
 through the hit record, shading, the carry and the row gathers (the fused
 kernels' VJPs and the histogram of ops/), with hit finding stop-gradient.
+``inverse_render`` runs the steps with tile draws inside an optional
+region of interest, per-step keys from ``rng.split`` or one common key
+(``crn_key``), a Polyak average of the parameters, and an optional
+reparameterisation (``init_params`` / ``param_transform``).
 
 One device, no mesh: the JAX step's shard_map and gradient all-reduce
 (inverse.py:243-279) wait for the port of ``parallel/``, so the whole
-batch is one wavefront and ``spp_total = spb``. ``inverse_render`` (EMA,
-curricula) is not ported yet.
+batch is one wavefront and ``spp_total = spb``, as JAX's on a one-device
+mesh; ``inverse_render`` has no ``mesh`` argument until then.
 """
 
 from __future__ import annotations
@@ -19,8 +24,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from sexy_raytracer_tpu_torch.diff.params import merge_params
+from sexy_raytracer_tpu_torch.diff.params import (
+    DEFAULT_TRAINABLE,
+    extract_params,
+    merge_params,
+)
+from sexy_raytracer_tpu_torch.models.scene import tensors_from_numpy
+from sexy_raytracer_tpu_torch.render.camera import Camera
+from sexy_raytracer_tpu_torch.render.integrator import scene_no_emissive_tris
 from sexy_raytracer_tpu_torch.render.renderer import render_pixels
+from sexy_raytracer_tpu_torch.utils import rng
 from sexy_raytracer_tpu_torch.utils.config import RenderConfig
 from sexy_raytracer_tpu_torch.utils.mathx import clip
 
@@ -229,3 +242,88 @@ def make_optimizer(params, learning_rate, lr_overrides=None,
             lr_overrides.setdefault(texel_group, learning_rate * 256.0)
     lrs = {k: lr_overrides.get(k, learning_rate) for k in params}
     return Adam(lrs, decay_steps=decay_steps)
+
+
+def inverse_render(scene, target_image, config: RenderConfig,
+                   n_steps: int = 200, pixels_per_step: int = 4096,
+                   spb: int = 4, learning_rate: float = 3e-3,
+                   lr_overrides=None, trainable=None, method: str = "auto",
+                   camera: Camera | None = None, seed: int = 0,
+                   log_every: int = 25, progress: bool = True,
+                   param_ema: float = 0.98, grad_masks=None, roi=None,
+                   loss_type: str = "mse", huber_delta: float = 0.1,
+                   init_params=None, param_transform=None, crn_key=None):
+    """Optimise scene params against ``target_image`` ([H, W, 3], 0..1;
+    linear radiance for ``tile_linear``) on the scene's device
+    (inverse.py:365-485) -> ``(optimised scene, [loss per step])``.
+
+    ``trainable`` defaults to ``DEFAULT_TRAINABLE`` less the empty fields.
+    Each step draws ``pixels_per_step`` pixels in 128-pixel tiles inside
+    ``roi`` (row0, row1, col0, col1) with a numpy generator of ``seed``,
+    gathers their target on the device, and traces with the next key of
+    ``rng.split`` from ``rng.key(seed)``. ``crn_key``: common random
+    numbers: every step traces with this key, so against a target rendered
+    with it at the same spp the loss is zero at the true parameters.
+    ``param_ema``: the returned params are the Polyak average
+    ``param_ema * e + (1 - param_ema) * p`` from the first step's params
+    (0 returns the last step's), computed as ``e + (1 - param_ema) *
+    (p - e)``: JAX's form moves a frozen value by an ulp where the two
+    products round apart, this one leaves it bit-equal.
+    ``init_params`` / ``param_transform``: optimise a reparameterisation;
+    the transform maps the params to scene fields, and is applied to the
+    returned params too.
+
+    Losses stay on the device and are read in one transfer at the end (and
+    at each ``log_every`` print when ``progress``).
+    """
+    dev = scene.device
+    trainable = tuple(trainable or DEFAULT_TRAINABLE)
+    trainable = tuple(n for n in trainable if getattr(scene, n).numel() > 0)
+    if camera is None:
+        camera = Camera.from_config(config.camera, config.aspect, device=dev)
+    if init_params is not None:
+        params = tensors_from_numpy(init_params, dev)
+    else:
+        params = extract_params(scene, trainable)
+    optimizer = make_optimizer(params, learning_rate, lr_overrides,
+                               decay_steps=n_steps)
+    step = make_train_step(
+        config, optimizer, spb=spb, method=method, grad_masks=grad_masks,
+        loss_type=loss_type, huber_delta=huber_delta,
+        param_transform=param_transform,
+        last_bounce_vis=scene_no_emissive_tris(scene),
+    )
+    state = step.init(params)
+
+    W, H = config.width, config.height
+    target_flat = torch.as_tensor(target_image, dtype=torch.float32,
+                                  device=dev).reshape(H * W, 3)
+    pixels_per_step = max(1, pixels_per_step)
+
+    key = rng.key(seed, device=dev)
+    rng_np = np.random.default_rng(seed)
+    losses = []
+    ema = None
+    for i in range(n_steps):
+        ids = sample_tile_ids(rng_np, W, H, pixels_per_step, roi=roi)
+        ids_dev = torch.from_numpy(ids).to(dev)
+        tgt = target_flat[ids_dev]
+        if crn_key is not None:
+            sub = crn_key
+        else:
+            key, sub = rng.split(key)
+        state, loss = step(state, scene, camera, ids_dev, tgt, sub)
+        if param_ema:
+            with torch.no_grad():
+                ema = dict(state.params) if ema is None else {
+                    k: e + (1.0 - param_ema) * (state.params[k] - e)
+                    for k, e in ema.items()}
+        losses.append(loss)
+        if progress and (i % log_every == 0 or i == n_steps - 1):
+            print(f"step {i}: loss {float(loss):.6f}", flush=True)
+    losses = torch.stack(losses).tolist() if losses else []
+    final = ema if param_ema else state.params
+    if param_transform is not None:
+        with torch.no_grad():
+            final = param_transform(final)
+    return merge_params(scene, final), losses

@@ -193,10 +193,19 @@ def scene_from_numpy(fields, device="cuda") -> SceneData:
     missing = [k for k in SceneData._fields if k not in fields]
     if missing:
         raise KeyError(f"scene fields missing: {missing}")
-    return SceneData(**{
-        k: torch.from_numpy(np.array(fields[k], copy=True)).to(device)
-        for k in SceneData._fields
-    })
+    return SceneData(**tensors_from_numpy(
+        {k: fields[k] for k in SceneData._fields}, device))
+
+
+def tensors_from_numpy(arrays, device="cuda") -> dict:
+    """A mapping of name -> array -> a dict of name -> tensor on ``device``,
+    dtypes kept. An array is anything ``np.array`` reads (numpy, a JAX
+    array) and is copied; a tensor is moved to ``device`` as it is. It
+    carries scenes, initial parameters and trained parameters across.
+    """
+    return {k: v.to(device) if torch.is_tensor(v)
+            else torch.from_numpy(np.array(v, copy=True)).to(device)
+            for k, v in arrays.items()}
 
 
 def prepare_triangles(tri_v0, tri_v1, tri_v2):

@@ -11,7 +11,11 @@ default since jax 0.5):
 
 * ``key(seed)`` is the pair ``(seed >> 32, seed & 0xFFFFFFFF)``;
 * ``fold_in(k, d)`` is ``threefry2x32(k, (0, d))``;
-* ``bits(k, (n,))`` is ``x0 ^ x1`` of ``threefry2x32(k, (0, i))``, i < n.
+* ``bits(k, (n,))`` is ``x0 ^ x1`` of ``threefry2x32(k, (0, i))``, i < n;
+* ``split(k, n)[i]`` is ``fold_in(k, i)`` (partitionable threefry);
+* ``uniform(k, shape)`` takes 23 bits of ``bits(k, shape)`` as a float's
+  mantissa, as ``jax.random.uniform`` does; the per-ray draws of the
+  integrator take 24 (``uniforms_from_bits``).
 
 A key is an int64 tensor ``[..., 2]`` holding two uint32 words. Words are
 kept in int64 and masked to 32 bits after every add, since torch's uint32
@@ -19,6 +23,8 @@ arithmetic is incomplete.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -68,6 +74,35 @@ def bits(keys, n: int):
     i = torch.arange(n, dtype=torch.int64, device=keys.device)
     y0, y1 = threefry2x32(keys[..., 0:1], keys[..., 1:2], 0, i)
     return y0 ^ y1
+
+
+def split(keys, n: int = 2):
+    """``jax.random.split(k, n)`` per key: ``[..., 2]`` -> ``[..., n, 2]``.
+
+    Under partitionable threefry subkey ``i`` is ``fold_in(k, i)``.
+    """
+    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return fold_in(keys[..., None, :], i)
+
+
+def uniform(keys, shape=(), lo=0.0, hi=1.0):
+    """``jax.random.uniform(k, shape, minval=lo, maxval=hi)`` (float32)
+    per key: ``[..., 2]`` -> ``[..., *shape]``, bit for bit.
+
+    The top 23 bits of each word fill the mantissa of a float in [1, 2)
+    (exponent bits 0x3F800000), less one; then ``u * (hi - lo) + lo``,
+    floored at ``lo``. XLA fuses that multiply-add into one rounding;
+    here the product is exact in float64 and the sum is rounded from
+    there (``lo = 0, hi = 1`` is exact either way).
+    """
+    shape = tuple(shape)
+    words = bits(keys, math.prod(shape))
+    u = ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = u.reshape(tuple(keys.shape[:-1]) + shape)
+    lo = torch.tensor(lo, dtype=torch.float32, device=keys.device)
+    hi = torch.tensor(hi, dtype=torch.float32, device=keys.device)
+    u = (u.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, u)
 
 
 def ray_keys_2d(base_key, pid, sid):

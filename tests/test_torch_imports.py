@@ -58,3 +58,15 @@ def test_tool_and_reference_modules_import_no_jax(module):
     assert path.exists()
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", ["diff/inverse.py", "diff/silhouette.py",
+                                    "diff/__init__.py", "render/camera.py",
+                                    "utils/rng.py"])
+def test_inverse_rendering_modules_import_no_jax(module):
+    """The inverse-rendering path's modules are in the scan and import
+    none of it."""
+    path = REPO / "sexy_raytracer_tpu_torch" / module
+    assert path.exists()
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad

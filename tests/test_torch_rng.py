@@ -92,3 +92,41 @@ def test_shaped_transforms(rng_np):
         want = np.asarray(jf(*(jnp.asarray(x) for x in u[:k])))
         got = tf(*(torch.from_numpy(x) for x in u[:k])).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1])
+def test_split_matches_jax(seed, n, pid_sid):
+    """``rng.split`` gives ``jax.random.split``'s words, on one key and on
+    a batch of folded keys."""
+    jk = jax.random.key(seed)
+    np.testing.assert_array_equal(trng.split(trng.key(seed), n).numpy(),
+                                  _jkey_data(jax.random.split(jk, n)))
+    pid = jnp.asarray(pid_sid[0])
+    jb = jax.vmap(lambda d: jax.random.split(jax.random.fold_in(jk, d), n))(
+        pid)
+    tb = trng.split(trng.fold_in(trng.key(seed), torch.from_numpy(
+        pid_sid[0])), n)
+    assert tb.shape == (pid.shape[0], n, 2)
+    np.testing.assert_array_equal(tb.numpy(), _jkey_data(jb))
+
+
+@pytest.mark.parametrize("shape,lo,hi", [((), 0.0, 1.0), ((5,), 0.0, 1.0),
+                                         ((5,), -2.0, 3.5),
+                                         ((2, 3), 0.1, 0.7)])
+def test_uniform_matches_jax(shape, lo, hi):
+    """``rng.uniform`` gives ``jax.random.uniform``'s float32 bits (23-bit
+    mantissa, not the integrator's 24-bit draw) on 4,096 folded keys."""
+    jk = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(3), i))(
+        jnp.arange(4096))
+    tk = trng.fold_in(trng.key(3), torch.arange(4096))
+    want = np.asarray(jax.vmap(lambda k: jax.random.uniform(
+        k, shape, minval=lo, maxval=hi))(jk))
+    got = trng.uniform(tk, shape, lo, hi)
+    assert got.dtype == torch.float32 and got.shape == (4096, *shape)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    one = trng.uniform(trng.fold_in(trng.key(3), 17), shape, lo, hi)
+    np.testing.assert_array_equal(one.numpy().view(np.int32),
+                                  want[17].view(np.int32))
+    assert (got >= lo).all() and (got < hi).all()
