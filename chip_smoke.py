@@ -140,6 +140,31 @@ nonzero without a result line:
      image plane, n_edge 256, on the card against CPU tensors (relative
      1e-2), finite and nonzero, and its time a call.
 
+10. the Shirley field, ``shirley_parity(seed=42)`` at 1280x720, 8 spp, 4
+    bounces, aperture 0.1 (no triangles; up to 488 spheres: glass, fuzzy
+    metal, moving diffuse), rendered by the command line's ``main(["render",
+    ...])`` in this process with the launch counters around it (per chunk
+    the find 3 times, occlusion and its pass once, hit record and shade 4
+    times, no other kernel); finite, a second render identical, the image
+    varying; glass, fuzzy metal and moving diffuse spheres each hit by at
+    least 0.1% of the frame's primary rays; 4,096 pixels (half spread over
+    the frame, half on glass) against the same ``render_pixels`` call on
+    CPU tensors within the trace parity budget (atol 2e-5, rtol 1e-5, 0.5%
+    of pixels; the rays that differ are named if any do); the frame time
+    and Mrays/s; kernel 1, kernel 2 and its pass at the centre chunk, each
+    beside its bound from the sphere tests its rays need;
+10b. the glTF path: the stand-in's relief mesh written as a ``.gltf``
+    (embedded base64) and a ``.glb`` (a TRS node over a matrix node), each
+    with the albedo PNG and the normal map, loaded by
+    ``presets.masterchief(asset=...)`` onto the flagship furniture and
+    equal to ``flagship_standin(n=39)`` in every field; the ``.glb``
+    scene's counted 720p, 8-spp frame (phase 4's checks); the command line
+    in subprocesses: ``render --preset square`` on the ``.gltf`` at 720p,
+    and ``inverse --preset shirley_parity --height 180`` for 3 steps of
+    4,096 pixels at spb 4 against phase 10's frame downscaled (kernels 5,
+    6 and 7 run there), each exiting 0 and writing a PNG of its size, the
+    inverse run 3 finite losses.
+
 The last three lines are the kernels' JSON record, nvidia-smi's
 "name, power.limit" line, and ``{"ok": true, "device": {...}}``.
 """
@@ -473,6 +498,486 @@ def inverse_phase(torch, dev, scene, cfg, relief, train_per_step, step6_s,
             or rel_s > 1e-2:
         raise AssertionError("silhouette gradient gate failed")
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    return counts
+
+
+# phase 10: the Shirley field (glass, fuzz, motion, aperture) through the
+# command line, and phase 10b: the glTF/GLB loader on the stand-in's mesh
+SHIRLEY_SEED, SHIRLEY_SPP, SHIRLEY_HEIGHT = 42, 8, 720
+SHIRLEY_CPU_PIXELS = 4096
+MIN_KIND_SHARE = 0.001   # of the frame's primary rays, per material kind
+GLTF_SPP, GLTF_HEIGHT = 8, 720
+
+
+def frame_plan(cfg):
+    """(render_pixels calls, pixels a chunk) of ``render_accumulate``."""
+    P = cfg.width * cfg.height
+    spb = min(cfg.samples_per_batch, cfg.samples_per_pixel)
+    chunk = max(1, min(cfg.rays_per_chunk // spb, P))
+    return -(-P // chunk) * -(-cfg.samples_per_pixel // spb), chunk
+
+
+def frame_counts(kernels, calls, find="srt_find_closest"):
+    """The launch counts a counted frame of ``calls`` render_pixels calls
+    must show: the find 3 times, occlusion and its pass once, hit record and
+    shade 4 times a call, no other kernel."""
+    expect = {k.symbol: 0 for k in kernels}
+    expect.update({find: 3 * calls, "srt_find_any": calls,
+                   "srt_any_regroup": calls, "srt_hitrec": 4 * calls,
+                   "srt_shade": 4 * calls})
+    return expect
+
+
+def primary_rays(torch, rng, camera, base_key, W, H, ids):
+    """Sample 0's camera rays of pixels ``ids`` (renderer.render_pixels)."""
+    keys = rng.ray_keys_2d(base_key, ids, torch.zeros_like(ids))
+    ucam = rng.per_ray_uniform_block(keys, 5)
+    u = ((ids % W).float() + ucam[:, 0]) / (W - 1)
+    v = ((H - (ids // W).float()) + ucam[:, 1]) / (H - 1)
+    return camera.get_rays(u, v, ucam[:, 2:5])
+
+
+def shirley_phase(torch, dev, out_dir, reset_counts, read_counts, smi):
+    """Phase 10: ``shirley_parity`` at 1280x720, 8 spp, rendered by the
+    command line in this process with the launch counters around it;
+    the frame's checks, the material kinds its primary rays hit, 4,096
+    pixels against the same ``render_pixels`` call on CPU tensors, and
+    kernels 1 and 2 at the centre chunk beside their sphere-test bounds.
+    Returns (launch counts, the PNG's path, kernels 1 and 2's timings)."""
+    from sexy_raytracer_tpu_torch import __main__ as cli
+    from sexy_raytracer_tpu_torch.models import presets
+    from sexy_raytracer_tpu_torch.models.scene import (
+        MAT_DIELECTRIC,
+        MAT_METAL,
+        MAT_PBR,
+    )
+    from sexy_raytracer_tpu_torch.ops import _cuda, find, fused
+    from sexy_raytracer_tpu_torch.ops.intersect import find_hit
+    from sexy_raytracer_tpu_torch.render import integrator, renderer
+    from sexy_raytracer_tpu_torch.render.camera import Camera
+    from sexy_raytracer_tpu_torch.tools.histogram_split import capture_calls
+    from sexy_raytracer_tpu_torch.utils import color, rng
+    from sexy_raytracer_tpu_torch.utils.png import read_png
+
+    t10 = time.perf_counter()
+    scene, cfg = presets.shirley_parity(seed=SHIRLEY_SEED, spp=SHIRLEY_SPP,
+                                        height=SHIRLEY_HEIGHT, device=dev)
+    W, H, spp = cfg.width, cfg.height, cfg.samples_per_pixel
+    P, S = W * H, scene.num_spheres
+    calls, chunk = frame_plan(cfg)
+    sph_mat = scene.sph_mat.long()
+    kind = scene.mat_type[sph_mat]
+    fuzzy = (kind == MAT_METAL) & (scene.mat_fuzz[sph_mat] > 0)
+    moving = (kind == MAT_PBR) & (scene.sph_c1 != scene.sph_c0).any(dim=1)
+    log(f"shirley field: seed {SHIRLEY_SEED}, {S} spheres "
+        f"({int((kind == MAT_DIELECTRIC).sum())} glass, {int(fuzzy.sum())} "
+        f"fuzzy metal, {int(moving.sum())} moving diffuse), "
+        f"{scene.num_triangles} triangles; {W}x{H}, {spp} spp, "
+        f"{cfg.max_bounce} bounces, aperture {cfg.camera.aperture}, "
+        f"{calls} chunks of {chunk * min(cfg.samples_per_batch, spp)} paths")
+    if not 0 < S <= 488 or scene.num_triangles:
+        raise AssertionError(f"the field has {S} spheres and "
+                             f"{scene.num_triangles} triangles")
+
+    out = os.path.join(out_dir, "shirley_720p.png")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["render", "--preset", "shirley_parity", "--height",
+                   str(SHIRLEY_HEIGHT), "--spp", str(SHIRLEY_SPP), "--out",
+                   out])
+    torch.cuda.synchronize()
+    cli_seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = frame_counts(_cuda.KERNELS, calls)
+    log(f"shirley frame launches (the command line's render): {counts} "
+        f"(expected {expect}); peak device memory {peak_gb:.2f} GB")
+    if rc != 0 or counts != expect:
+        raise AssertionError(f"render exited {rc}; launch counts {counts} "
+                             f"!= {expect}")
+    img = read_png(out, 3)
+
+    t0 = time.perf_counter()
+    accum = renderer.render_accumulate(scene, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not np.isfinite(accum).all():
+        raise AssertionError("non-finite radiance in the Shirley frame")
+    if not np.array_equal(color.to_uint8(color.resolve(accum, spp)), img):
+        raise AssertionError("a second Shirley frame differs from the "
+                             "command line's")
+    if img is None or img.shape != (H, W, 3) or img.std() < 5.0:
+        raise AssertionError("Shirley frame is constant or misshapen")
+
+    # the material kinds the frame's primary rays hit (sample 0)
+    camera = Camera.from_config(cfg.camera, cfg.aspect, device=dev)
+    base_key = rng.key(cfg.seed, device=dev)
+    pid = torch.arange(P, dtype=torch.int32, device=dev)
+    prim, _ = find_hit(scene, *primary_rays(torch, rng, camera, base_key,
+                                            W, H, pid))
+    sph = (prim - scene.num_triangles).clamp(min=0).long()
+    on = prim >= 0
+    shares = {name: float((on & sel[sph]).float().mean())
+              for name, sel in (("glass", kind == MAT_DIELECTRIC),
+                                ("fuzzy metal", fuzzy),
+                                ("moving diffuse", moving))}
+    paths = P * spp
+    mrays = paths * cfg.max_bounce / seconds / 1e6
+    log(f"shirley frame: {seconds:.3f} s for {paths} paths, {mrays:.2f} "
+        f"Mrays/s (paths x {cfg.max_bounce}); the command line's render "
+        f"{cli_seconds:.3f} s with the scene's build; identical, finite; "
+        f"mean {img.mean():.2f}, std {img.std():.2f}; primary rays on "
+        + ", ".join(f"{k} {100 * v:.3f}%" for k, v in shares.items())
+        + f"; {smi}")
+    low = {k: v for k, v in shares.items() if v < MIN_KIND_SHARE}
+    if low:
+        raise AssertionError(f"material kinds hit by < "
+                             f"{100 * MIN_KIND_SHARE}% of primary rays: {low}")
+
+    # 4,096 pixels on the card and on the CPU: the same ids (half spread
+    # over the frame, half among the pixels whose primary ray hits glass),
+    # sample start, key and spb
+    glass_px = torch.nonzero(on & (kind == MAT_DIELECTRIC)[sph]).flatten()
+    half = SHIRLEY_CPU_PIXELS // 2
+    pick = torch.linspace(0, glass_px.numel() - 1, half,
+                          device=dev).round().long()
+    spread = torch.linspace(0, P - 1, half, device=dev).round().long()
+    ids = torch.cat([spread, glass_px[pick]]).to(torch.int32)
+    bg = torch.tensor(cfg.background, device=dev)
+    kw = dict(width=W, height=H, spb=min(cfg.samples_per_batch, spp),
+              spp_total=spp, max_bounce=cfg.max_bounce, last_bounce_vis=True)
+    gpu = renderer.render_pixels(scene, camera, ids, 0, base_key, bg,
+                                 **kw).cpu()
+    t0 = time.perf_counter()
+    cpu_scene = scene.to("cpu")
+    cam_cpu = Camera.from_config(cfg.camera, cfg.aspect, device="cpu")
+    cpu = renderer.render_pixels(cpu_scene, cam_cpu, ids.cpu(), 0,
+                                 base_key.cpu(), bg.cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    close = torch.isclose(gpu, cpu, atol=2e-5, rtol=1e-5).all(dim=1)
+    n_out = int((~close).sum())
+    note = ""
+    if n_out:
+        # which rays differ: each sample alone, and the material its
+        # primary ray hits
+        bad = ids[~close.to(dev)]
+        diff_rays = 0
+        for s0 in range(kw["spb"]):
+            one = dict(kw, spb=1)
+            g1 = renderer.render_pixels(scene, camera, bad, s0, base_key, bg,
+                                        **one).cpu()
+            c1 = renderer.render_pixels(cpu_scene, cam_cpu, bad.cpu(), s0,
+                                        base_key.cpu(), bg.cpu(), **one)
+            diff_rays += int((~torch.isclose(g1, c1, atol=2e-5, rtol=1e-5)
+                              .all(dim=1)).sum())
+        first = kind[sph[bad.long()]].tolist()
+        note = (f"; {diff_rays} of {bad.numel() * kw['spb']} rays of those "
+                f"pixels differ; their primary hits by material type "
+                f"{ {t: first.count(t) for t in sorted(set(first))} }")
+    log(f"shirley {SHIRLEY_CPU_PIXELS} pixels x spb {kw['spb']}, card vs CPU "
+        f"(CPU {cpu_s:.1f} s): {n_out} pixels outside atol 2e-5 rtol 1e-5 "
+        f"(budget 0.5%), max abs err {float((gpu - cpu).abs().max()):.3g}"
+        + note)
+    if float(close.float().mean()) < 0.995:
+        raise AssertionError("card and CPU disagree on > 0.5% of the "
+                             "Shirley pixels")
+
+    # kernels 1-4 at the centre chunk against their plain versions, bit for
+    # bit (kernels 3 and 4 on bounce 1's stacks: glass, fuzz and moving
+    # rows among them); kernels 1 and 2 (and its pass) timed beside the
+    # bound from the sphere tests their rays need (every live ray against
+    # every sphere, OPS_PER_SPHERE_TEST each) or from the bytes they move
+    order = renderer.tile_pixel_order(W, H)
+    mid = (-(-P // chunk) // 2) * chunk
+    mids = torch.from_numpy(order[mid:mid + chunk]).to(dev)
+    got = capture_calls(
+        [find, find, find, integrator, integrator],
+        ["find_closest", "any_regroup", "find_any", "hitrec_fused",
+         "shade_carry_fused"],
+        lambda: renderer.render_pixels(scene, camera, mids, 0, base_key, bg,
+                                       **kw))
+    k1 = got["find_closest"][0]
+    reg = got["any_regroup"][0]
+    k2 = got["find_any"][0]
+    held = {
+        "find_closest (bounce 0)": (find.find_closest, find.find_streamed_plain,
+                                    k1),
+        "any_regroup": (find.any_regroup, find.any_regroup_plain, reg),
+        "find_any": (find.find_any, find.find_any_plain, k2),
+        "hitrec_fused (bounce 1)": (fused.hitrec_fused, fused.hitrec_math,
+                                    got["hitrec_fused"][1]),
+        "shade_carry_fused (bounce 1)": (fused.shade_carry_fused,
+                                         fused.shade_carry_math,
+                                         got["shade_carry_fused"][1]),
+    }
+    for name, (kern, plain, inp) in held.items():
+        a, b = kern(*inp), plain(*inp)
+        a, b = (a, b) if torch.is_tensor(a) else (torch.cat(
+            [x.reshape(-1).view(torch.int32) for x in a]), torch.cat(
+            [x.reshape(-1).view(torch.int32) for x in b]))
+        same = (a.view(torch.int32) == b.view(torch.int32)) \
+            | (a.isnan() & b.isnan() if a.is_floating_point() else False)
+        if not bool(same.all()):
+            raise AssertionError(f"shirley {name}: {int((~same).sum())} "
+                                 "values differ from the plain version")
+    hf = got["hitrec_fused"][1][0]
+    sf, si = got["shade_carry_fused"][1]
+    lanes = sf[26] > 0.5
+    log("shirley centre chunk: kernels 1, 2, the pass, 3 and 4 bit-equal to "
+        "their plain versions; bounce 1's stacks: "
+        f"{int((lanes & (si[0] == MAT_DIELECTRIC)).sum())} glass, "
+        f"{int((lanes & (si[0] == MAT_METAL) & (sf[fused.SF_GF + 6] > 0)).sum())}"
+        f" fuzzy metal, "
+        f"{int(((hf[33] > 0.5) & (hf[22:25] != hf[25:28]).any(dim=0)).sum())}"
+        f" moving-sphere lanes of {sf.shape[1]}")
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if hasattr(t, "numel"))
+
+    def timed(name, fn, n_bytes, n_tests, what):
+        ms = time_ms(torch, fn, 20)
+        t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_o = n_tests * OPS_PER_SPHERE_TEST / F32_FLOPS_PER_S * 1e3
+        bound_by = "bytes" if t_b >= t_o else "operations"
+        log(f"shirley {name} [centre chunk, {what}]: {ms:.4f} ms, bound "
+            f"{max(t_b, t_o):.4f} ms by {bound_by} ({n_tests} sphere "
+            f"tests x {OPS_PER_SPHERE_TEST} ops, {n_bytes / 1e6:.1f} MB) "
+            f"(median, CUDA events, {smi})")
+        return {"ms": ms, "bound_ms": max(t_b, t_o), "bound_by": bound_by,
+                "sphere_tests": n_tests, "case": what}
+
+    live1 = int((k1[1][:, 7] < 1e38).sum())
+    n_sph = int((k1[4][:, 7] > 0).sum())
+    live_r = int(((reg[4] > reg[3]) & (reg[3] < 1e38)).sum())
+    n_occ = int((reg[5][:, 7] > 0).sum())
+    timings = {
+        "find_closest": timed(
+            "kernel 1 (find_closest)", lambda: find.find_closest(*k1),
+            nbytes(*k1) + 8 * k1[1].shape[0], live1 * n_sph,
+            f"bounce 0, {live1} live rays x {n_sph} spheres"),
+        "any_regroup": timed(
+            "kernel 2's pass (any_regroup)", lambda: find.any_regroup(*reg),
+            nbytes(*reg) + 4 * 12 * k2[1].shape[0], live_r * n_occ,
+            f"last bounce, {live_r} live rays x {n_occ} occluder spheres"),
+        "find_any": timed(
+            "kernel 2 (find_any)", lambda: find.find_any(*k2),
+            nbytes(*k2) + 4 * k2[1].shape[0], 0,
+            f"last bounce, no triangles: {int((k2[1][:, 8] >= 0).sum())} "
+            f"rays left live by the pass"),
+    }
+    log(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    return counts, out, timings
+
+
+def gltf_phase(torch, dev, out_dir, shirley_png, reset_counts, read_counts,
+               smi):
+    """Phase 10b: the stand-in's relief mesh written as a ``.gltf``
+    (embedded base64 buffer and images) and as a ``.glb`` (a TRS node over
+    a matrix node; the stored vertices undo the nodes' exact transform),
+    loaded by ``presets.masterchief`` onto the flagship furniture; both
+    scenes equal ``flagship_standin(n=39)``'s; the ``.glb`` scene's
+    counted 720p frame; then the command line in subprocesses: ``render
+    --preset square`` on the ``.gltf`` and ``inverse --preset
+    shirley_parity`` against phase 10's frame downscaled. Returns the
+    frame's launch counts."""
+    import base64
+    import struct
+
+    from sexy_raytracer_tpu_torch.models import presets
+    from sexy_raytracer_tpu_torch.models.scene import SceneBuilder, SceneData
+    from sexy_raytracer_tpu_torch.ops import _cuda
+    from sexy_raytracer_tpu_torch.ops.intersect import find_hit
+    from sexy_raytracer_tpu_torch.render import renderer
+    from sexy_raytracer_tpu_torch.render.camera import Camera
+    from sexy_raytracer_tpu_torch.utils import color, rng
+    from sexy_raytracer_tpu_torch.utils.png import read_png, write_png
+
+    t10 = time.perf_counter()
+    # the relief's mesh, images and factors, as add_relief_mesh makes them
+    rec = SceneBuilder()
+    presets.add_relief_mesh(rec)
+    (pos, uv, idx, _), = rec._tri_v
+    albedo, normal = (rec._images[i].astype(np.uint8) for i in (0, 1))
+    mat = rec._materials[0]
+    pngs = []
+    for i, img in enumerate((albedo, normal)):
+        path = os.path.join(out_dir, f"relief_{i}.png")
+        write_png(path, img)
+        with open(path, "rb") as f:
+            pngs.append(f.read())
+
+    # the .glb's nodes: parent TRS (T (0, 8, 0), 180 degrees about Y,
+    # S (2, 0.5, 4)) over a child matrix (S (0.25, 4, 0.5), T (0, -16, 0)):
+    # world = diag(-0.5, 2, -2), no translation, exact in float32
+    lin = np.diag([-0.5, 2.0, -2.0])
+    child = np.eye(4)
+    child[:3, :3] = np.diag([0.25, 4.0, 0.5])
+    child[:3, 3] = (0.0, -16.0, 0.0)
+
+    def document(positions, images_in_buffer, nodes):
+        blob = bytearray()
+        views = []
+
+        def view(data):
+            while len(blob) % 4:
+                blob.append(0)
+            views.append({"buffer": 0, "byteOffset": len(blob),
+                          "byteLength": len(data)})
+            blob.extend(data)
+            return len(views) - 1
+
+        acc = [
+            {"bufferView": view(positions.astype(np.float32).tobytes()),
+             "componentType": 5126, "count": len(positions), "type": "VEC3"},
+            {"bufferView": view(uv.astype(np.float32).tobytes()),
+             "componentType": 5126, "count": len(uv), "type": "VEC2"},
+            {"bufferView": view(idx.astype(np.uint32).tobytes()),
+             "componentType": 5125, "count": idx.size, "type": "SCALAR"},
+        ]
+        images = [{"bufferView": view(b), "mimeType": "image/png"}
+                  if images_in_buffer else
+                  {"uri": "data:image/png;base64,"
+                          + base64.b64encode(b).decode()} for b in pngs]
+        doc = {
+            "asset": {"version": "2.0"}, "scenes": [{"nodes": [0]}],
+            "nodes": nodes, "accessors": acc, "bufferViews": views,
+            "images": images, "textures": [{"source": 0}, {"source": 1}],
+            "materials": [{
+                "pbrMetallicRoughness": {
+                    "baseColorTexture": {"index": 0},
+                    "baseColorFactor": list(mat["base_color"]),
+                    "metallicFactor": mat["metallic"],
+                    "roughnessFactor": mat["roughness"]},
+                "normalTexture": {"index": 1}}],
+            "meshes": [{"primitives": [{
+                "attributes": {"POSITION": 0, "TEXCOORD_0": 1},
+                "indices": 2, "material": 0}]}],
+        }
+        return doc, bytes(blob)
+
+    doc, blob = document(pos, False, [{"mesh": 0}])
+    doc["buffers"] = [{"uri": "data:application/octet-stream;base64,"
+                       + base64.b64encode(blob).decode(),
+                       "byteLength": len(blob)}]
+    gltf_path = os.path.join(out_dir, "relief.gltf")
+    with open(gltf_path, "w") as f:
+        json.dump(doc, f)
+    doc, blob = document(
+        pos.astype(np.float64) @ np.linalg.inv(lin).T, True,
+        [{"children": [1], "translation": [0.0, 8.0, 0.0],
+          "rotation": [0.0, 1.0, 0.0, 0.0], "scale": [2.0, 0.5, 4.0]},
+         {"mesh": 0, "matrix": child.T.ravel().tolist()}])
+    doc["buffers"] = [{"byteLength": len(blob)}]
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    body = struct.pack("<II", len(js), 0x4E4F534A) + js \
+        + struct.pack("<II", len(blob), 0x004E4942) + blob
+    glb_path = os.path.join(out_dir, "relief.glb")
+    with open(glb_path, "wb") as f:
+        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+
+    # both loaded onto the flagship furniture, the stand-in beside them
+    # (its iron textures read from the same directory: the sentinels)
+    standin, cfg = presets.flagship_standin(n=39, spp=GLTF_SPP,
+                                            height=GLTF_HEIGHT,
+                                            data_dir=out_dir, device=dev,
+                                            build_bvh=True)
+    sc_gltf, cfg_gltf = presets.masterchief(
+        data_dir=out_dir, spp=GLTF_SPP, height=cfg.height,
+        asset="relief.gltf", device=dev)
+    sc_glb, _ = presets.masterchief(data_dir=out_dir, spp=GLTF_SPP,
+                                    height=cfg.height, asset="relief.glb",
+                                    device=dev)
+    for name in SceneData._fields:
+        a, b, c = (getattr(x, name) for x in (sc_gltf, sc_glb, standin))
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"the loaded scenes' {name} differs from "
+                                 "the stand-in's")
+    if cfg_gltf != cfg:
+        raise AssertionError("the glTF preset's config differs")
+    T = sc_glb.num_triangles
+    log(f"glTF: relief.gltf ({os.path.getsize(gltf_path)} B, embedded "
+        f"base64) and relief.glb ({os.path.getsize(glb_path)} B, TRS node "
+        f"over a matrix node): {T} triangles, uint32 indices, 2 PNG "
+        f"textures; both scenes equal flagship_standin(n=39)'s in every "
+        f"field, bit for bit (the nodes' transform is exact in float32)")
+
+    calls, _ = frame_plan(cfg)
+    W, H = cfg.width, cfg.height
+    reset_counts()
+    t0 = time.perf_counter()
+    img = renderer.render_image(sc_glb, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    expect = frame_counts(_cuda.KERNELS, calls)
+    log(f"glb frame launches: {counts} (expected {expect})")
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != {expect}")
+    accum = renderer.render_accumulate(sc_glb, cfg)
+    if not np.isfinite(accum).all():
+        raise AssertionError("non-finite radiance in the glb frame")
+    if not np.array_equal(color.to_uint8(color.resolve(accum, GLTF_SPP)),
+                          img):
+        raise AssertionError("a second glb frame differs from the first")
+    if img.shape != (H, W, 3) or img.std() < 5.0:
+        raise AssertionError("glb frame is constant or misshapen")
+    camera = Camera.from_config(cfg.camera, cfg.aspect, device=dev)
+    pid = torch.arange(W * H, dtype=torch.int32, device=dev)
+    prim, _ = find_hit(sc_glb, *primary_rays(
+        torch, rng, camera, rng.key(cfg.seed, device=dev), W, H, pid))
+    share = float(((prim >= 0) & (prim < T)).float().mean())
+    paths = W * H * GLTF_SPP
+    log(f"glb frame: {W}x{H}, {GLTF_SPP} spp, {cfg.max_bounce} bounces: "
+        f"{seconds:.3f} s, {paths * cfg.max_bounce / seconds / 1e6:.2f} "
+        f"Mrays/s (paths x {cfg.max_bounce}); repeatable, finite; mean "
+        f"{img.mean():.2f}, std {img.std():.2f}; primary rays hitting a "
+        f"triangle {100 * share:.2f}%; {smi}")
+    if share < 0.05:
+        raise AssertionError(f"only {100 * share:.2f}% of primary rays hit "
+                             "a triangle (need >= 5%)")
+
+    # the command line in subprocesses: render the .gltf as square.gltf,
+    # and 3 inverse steps against phase 10's frame at a quarter of its
+    # height (320x180)
+    os.replace(gltf_path, os.path.join(out_dir, "square.gltf"))
+    target = read_png(shirley_png, 3).astype(np.float64)
+    th, tw = target.shape[0] // 4, target.shape[1] // 4
+    small = target.reshape(th, 4, tw, 4, 3).mean(axis=(1, 3))
+    tgt = os.path.join(out_dir, "shirley_target.png")
+    write_png(tgt, np.round(small).astype(np.uint8))
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = [
+        ("render", ["render", "--preset", "square", "--data-dir", out_dir,
+                    "--height", str(H), "--spp", str(GLTF_SPP)], (H, W)),
+        ("inverse", ["inverse", "--preset", "shirley_parity", "--height",
+                     str(th), "--target", tgt, "--steps", "3",
+                     "--pixels-per-step", "4096", "--spb", "4",
+                     "--losses-out", os.path.join(out_dir, "losses.json")],
+         (th, tw)),
+    ]
+    for name, argv, shape in runs:
+        png = os.path.join(out_dir, f"cli_{name}.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sexy_raytracer_tpu_torch", *argv,
+             "--out", png], cwd=here, capture_output=True, text=True,
+            timeout=600)
+        dt = time.perf_counter() - t0
+        tail = [ln for ln in proc.stderr.splitlines() if ln.strip()][-3:]
+        log(f"cli {name}: exit {proc.returncode} in {dt:.1f} s; "
+            + " | ".join(tail))
+        got = read_png(png, 3) if os.path.exists(png) else None
+        if proc.returncode != 0 or got is None or got.shape[:2] != shape:
+            raise AssertionError(f"cli {name} failed:\n{proc.stderr[-3000:]}")
+    with open(os.path.join(out_dir, "losses.json")) as f:
+        losses = json.load(f)
+    log(f"cli inverse losses: {losses}")
+    if len(losses) != 3 or not np.isfinite(losses).all():
+        raise AssertionError(f"cli inverse wrote losses {losses}")
+    log(f"phase 10b: {time.perf_counter() - t10:.1f} s")
     return counts
 
 
@@ -1078,10 +1583,7 @@ def main(argv=None) -> int:
     seconds = time.perf_counter() - t0
     counts = read_counts()
 
-    expect = {k.symbol: 0 for k in _cuda.KERNELS}
-    expect.update({"srt_find_closest": 3 * n_chunks, "srt_find_any": n_chunks,
-                   "srt_any_regroup": n_chunks,
-                   "srt_hitrec": 4 * n_chunks, "srt_shade": 4 * n_chunks})
+    expect = frame_counts(_cuda.KERNELS, n_chunks)
     log(f"frame launches: {counts} (expected {expect})")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
@@ -1103,11 +1605,7 @@ def main(argv=None) -> int:
 
     # primary rays of every pixel (sample 0): share that hits a triangle
     pid = torch.arange(P, dtype=torch.int32, device=dev)
-    keys = rng.ray_keys_2d(base_key, pid, torch.zeros_like(pid))
-    ucam = rng.per_ray_uniform_block(keys, 5)
-    u = ((pid % W).float() + ucam[:, 0]) / (W - 1)
-    v = ((H - (pid // W).float()) + ucam[:, 1]) / (H - 1)
-    o, d, tm = camera.get_rays(u, v, ucam[:, 2:5])
+    o, d, tm = primary_rays(torch, rng, camera, base_key, W, H, pid)
     prim, _ = find_hit(scene, o, d, tm)
     relief = ((prim >= 0) & (prim < T)).reshape(H, W)
     tri_share = float(relief.float().mean())
@@ -1512,12 +2010,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     big_seconds = time.perf_counter() - t0
     counts = read_counts()
-    expect = {k: 0 for k in counts}
-    expect.update({"srt_find_streamed": 3 * big_chunks,
-                   "srt_find_any": big_chunks,
-                   "srt_any_regroup": big_chunks,
-                   "srt_hitrec": 4 * big_chunks,
-                   "srt_shade": 4 * big_chunks})
+    expect = frame_counts(_cuda.KERNELS, big_chunks, find="srt_find_streamed")
     log(f"big frame launches: {counts} (expected {expect})")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
@@ -1799,6 +2292,18 @@ def main(argv=None) -> int:
                            step_s, reset_counts, read_counts, smi)
     for name, c in kernel_checks.items():
         records[name]["launches_by_path"]["inverse"] = counts[c[3].symbol]
+
+    # ---- 10. the Shirley field, the glTF path and the command line -------
+    with tempfile.TemporaryDirectory() as out_dir:
+        counts, shirley_png, timings = shirley_phase(
+            torch, dev, out_dir, reset_counts, read_counts, smi)
+        counts_b = gltf_phase(torch, dev, out_dir, shirley_png, reset_counts,
+                              read_counts, smi)
+    for name, c in kernel_checks.items():
+        records[name]["launches_by_path"]["shirley"] = counts[c[3].symbol]
+        records[name]["launches_by_path"]["gltf"] = counts_b[c[3].symbol]
+    for name, t in timings.items():
+        records[name]["shirley"] = t
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile

@@ -1,16 +1,19 @@
-"""Asset-free scene presets (counterpart of ``models/presets.py``).
+"""The BASELINE scenes as named presets (counterpart of
+``models/presets.py``), and the flagship stand-in.
 
 Each preset returns ``(SceneData, RenderConfig)``, the scene on
-``device``: the card unless the caller asks for ``"cpu"``. The parts of the
-flagship scene that need no asset files are ported (the ground, the HDR
-light, the sentinel-textured iron sphere and the mirror sphere); the
-Master Chief glTF and its loader wait until the asset is in the
-repository. ``flagship_standin`` puts a procedural relief mesh with the
-chief's triangle count in the chief's place.
+``device``: the card unless the caller asks for ``"cpu"``. ``PRESETS``
+names the JAX package's eight presets. The glTF presets (``cube``,
+``square``, ``scene``, ``masterchief``, ``masterchief_glb``) read their
+asset through ``models/gltf.py`` and raise, as the JAX package's do, when
+it is absent; the Master Chief asset is not in the repository, so
+``flagship_standin`` puts a procedural relief mesh with the chief's
+triangle count in the chief's place. ``flagship_standin`` has no JAX
+counterpart and stays outside ``PRESETS``.
 
 Asset files are read from ``data_dir`` (default: ``$SRT_DATA_DIR``, else
-``data/`` at the repository root). A missing file yields the reference's
-magenta sentinel texture, as in the reference itself.
+``data/`` at the repository root). A missing texture file yields the
+reference's magenta sentinel texture, as in the reference itself.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 
 import numpy as np
 
+from sexy_raytracer_tpu_torch.models.gltf import load_gltf
 from sexy_raytracer_tpu_torch.models.scene import SceneBuilder
 from sexy_raytracer_tpu_torch.utils.config import CameraConfig, RenderConfig
 from sexy_raytracer_tpu_torch.utils.png import read_png
@@ -82,6 +86,17 @@ def _flagship_camera() -> CameraConfig:
         focus_dist=10.0,
         time0=0.0,
         time1=1.0,
+    )
+
+
+def _flagship_config(height: int, spp: int) -> RenderConfig:
+    """16:9 at ``height``, 4 bounces, the flagship camera."""
+    return RenderConfig(
+        width=int(height * 16 / 9),
+        height=height,
+        samples_per_pixel=spp,
+        max_bounce=4,
+        camera=_flagship_camera(),
     )
 
 
@@ -154,14 +169,25 @@ def flagship_standin(n: int = 39, spp: int = 8, height: int = 720,
     _add_ground_and_lights(b)
     _add_iron_and_metal(b, data_dir)
     scene = b.build(build_bvh=build_bvh, device=device)
-    cfg = RenderConfig(
+    return scene, _flagship_config(height, spp)
+
+
+def _shirley_config(height: int, spp: int) -> RenderConfig:
+    """The book's view of the sphere field: 16:9, 4 bounces, aperture
+    0.1 focused at 10 (reference main.cpp:92-122)."""
+    return RenderConfig(
         width=int(height * 16 / 9),
         height=height,
         samples_per_pixel=spp,
         max_bounce=4,
-        camera=_flagship_camera(),
+        camera=CameraConfig(
+            eye=(13.0, 2.0, 3.0),
+            look_at=(0.0, 0.0, 0.0),
+            vfov_degrees=20.0,
+            aperture=0.1,
+            focus_dist=10.0,
+        ),
     )
-    return scene, cfg
 
 
 def shirley_spheres(seed: int = 4, spp: int = 16, height: int = 240,
@@ -207,20 +233,7 @@ def shirley_spheres(seed: int = 4, spp: int = 16, height: int = 240,
     b.add_sphere((4, 1, 0), 1.0, b.add_metal_material((0.7, 0.6, 0.5), 0.0))
 
     scene = b.build(device=device)
-    cfg = RenderConfig(
-        width=int(height * 16 / 9),
-        height=height,
-        samples_per_pixel=spp,
-        max_bounce=4,
-        camera=CameraConfig(
-            eye=(13.0, 2.0, 3.0),
-            look_at=(0.0, 0.0, 0.0),
-            vfov_degrees=20.0,
-            aperture=0.1,
-            focus_dist=10.0,
-        ),
-    )
-    return scene, cfg
+    return scene, _shirley_config(height, spp)
 
 
 def rustediron_globe(data_dir: str | None = None, spp: int = 64,
@@ -230,12 +243,174 @@ def rustediron_globe(data_dir: str | None = None, spp: int = 64,
     b = SceneBuilder()
     _add_ground_and_lights(b)
     _add_iron_and_metal(b, data_dir)
-    scene = b.build(device=device)
-    cfg = RenderConfig(
-        width=int(height * 16 / 9),
-        height=height,
-        samples_per_pixel=spp,
-        max_bounce=4,
-        camera=_flagship_camera(),
+    return b.build(device=device), _flagship_config(height, spp)
+
+
+def _branch_transform() -> np.ndarray:
+    # reference main.cpp:66-70: translate(0,1,0) * rotY(-15 deg)
+    angle = np.deg2rad(-15.0)
+    return np.array(
+        [
+            [np.cos(angle), 0.0, np.sin(angle), 0.0],
+            [0.0, 1.0, 0.0, 1.0],
+            [-np.sin(angle), 0.0, np.cos(angle), 0.0],
+            [0.0, 0.0, 0.0, 1.0],
+        ]
     )
-    return scene, cfg
+
+
+def cube(data_dir: str | None = None, spp: int = 64, height: int = 480,
+         device="cuda"):
+    """cube.gltf under the flagship furniture, lifted onto the ground and
+    turned -15 degrees about Y like the reference's square branch
+    (main.cpp:66-69)."""
+    data_dir = data_dir or default_data_dir()
+    b = SceneBuilder()
+    _add_ground_and_lights(b)
+    load_gltf(os.path.join(data_dir, "cube.gltf"), b,
+              root_transform=_branch_transform())
+    return b.build(device=device), _flagship_config(height, spp)
+
+
+def masterchief(data_dir: str | None = None, spp: int = 1000,
+                height: int = 720,
+                asset: str = "masterchief2-separate-xf.gltf",
+                root_transform=None, device="cuda"):
+    """The reference's randomScene() (main.cpp:54-154): Master Chief mesh +
+    checker ground + HDR light + (sentinel-textured) iron PBR sphere +
+    mirror metal sphere."""
+    data_dir = data_dir or default_data_dir()
+    b = SceneBuilder()
+    load_gltf(os.path.join(data_dir, asset), b, root_transform=root_transform)
+    _add_ground_and_lights(b)
+    _add_iron_and_metal(b, data_dir)
+    return b.build(device=device), _flagship_config(height, spp)
+
+
+# halo.glb is the Master Chief mesh of masterchief2-separate-xf.gltf stored
+# as GLB with live node transforms; CHIEF_GLB_BAKE is the residual world
+# transform (uniform 0.075 scale x rotation) that maps its node-transformed
+# triangles onto the -xf geometry (the JAX package's least-squares fit).
+CHIEF_GLB_BAKE = np.array(
+    [
+        [-0.00065918, -0.00265495, -0.0749501, 0.0],
+        [0.0, 0.07495299, -0.00265505, 0.0],
+        [0.07499711, -0.00002334, -0.00065877, 0.0],
+        [0.0, 0.0, 0.0, 1.0],
+    ]
+)
+
+
+def masterchief_glb(data_dir: str | None = None, spp: int = 1000,
+                    height: int = 720, device="cuda"):
+    """The flagship scene loaded through the GLB path (halo.glb)."""
+    return masterchief(data_dir=data_dir, spp=spp, height=height,
+                       asset="halo.glb", root_transform=CHIEF_GLB_BAKE,
+                       device=device)
+
+
+def square(data_dir: str | None = None, spp: int = 64, height: int = 480,
+           device="cuda"):
+    """square.gltf branch (main.cpp:60-71): the two-triangle quad under the
+    flagship's furniture and camera."""
+    data_dir = data_dir or default_data_dir()
+    b = SceneBuilder()
+    load_gltf(os.path.join(data_dir, "square.gltf"), b,
+              root_transform=_branch_transform())
+    _add_ground_and_lights(b)
+    _add_iron_and_metal(b, data_dir)
+    return b.build(device=device), _flagship_config(height, spp)
+
+
+def scene_gltf(data_dir: str | None = None, spp: int = 64, height: int = 480,
+               device="cuda"):
+    """scene.gltf branch (main.cpp:77-80): a 15-primitive scene graph with
+    node transforms and uint32 indices."""
+    data_dir = data_dir or default_data_dir()
+    b = SceneBuilder()
+    load_gltf(os.path.join(data_dir, "scene.gltf"), b)
+    _add_ground_and_lights(b)
+    _add_iron_and_metal(b, data_dir)
+    return b.build(device=device), _flagship_config(height, spp)
+
+
+def _lcg_stream(seed: int):
+    """The 64-bit LCG of the reference binary ``tests/reforacle``:
+    state = state * 6364136223846793005 + 1442695040888963407 mod 2^64, in
+    Python ints; value = top 24 bits / 2^24, exact in float32."""
+    state = seed & 0xFFFFFFFFFFFFFFFF
+
+    def nxt() -> np.float32:
+        nonlocal state
+        state = (state * 6364136223846793005 + 1442695040888963407) \
+            & 0xFFFFFFFFFFFFFFFF
+        return np.float32(state >> 40) / np.float32(16777216.0)
+
+    return nxt
+
+
+def shirley_parity(seed: int = 42, spp: int = 64, height: int = 240,
+                   device="cuda"):
+    """The scene the reference binary builds for ``tests/reforacle/reforacle
+    W H spp bounces out.png shirley [seed]``: dielectric glass, fuzzy metal,
+    moving (motion-blurred) diffuse spheres and thin-lens depth of field
+    (reference material.h:87-137, sphere.h:47-52, camera.h:40-50). The
+    field restates main.cpp:92-122 with the shared LCG, all arithmetic in
+    float32, draw for draw as the C++ makes it."""
+    f32 = np.float32
+    nxt = _lcg_stream(seed)
+    b = SceneBuilder()
+
+    checker = b.add_checker_texture((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+    b.add_sphere((0, -1000, 0), 1000.0, b.add_pbr_material(albedo_tex=checker))
+
+    for a in range(-11, 11):
+        for bb in range(-11, 11):
+            choose = nxt()
+            cx = f32(a) + f32(0.9) * nxt()
+            cz = f32(bb) + f32(0.9) * nxt()
+            center = np.array([cx, 0.2, cz], np.float32)
+            delta = center - np.array([4.0, 0.2, 0.0], np.float32)
+            if np.sqrt(f32(np.dot(delta, delta))) <= f32(0.9):
+                continue
+            if choose < f32(0.8):
+                r1, r2 = nxt(), nxt()
+                g1, g2 = nxt(), nxt()
+                b1, b2 = nxt(), nxt()
+                mat = b.add_pbr_material(albedo_tex=b.add_solid_texture(
+                    (f32(r1 * r2), f32(g1 * g2), f32(b1 * b2))))
+                dy = nxt() * f32(0.5)
+                center2 = center + np.array([0.0, dy, 0.0], np.float32)
+                b.add_sphere(center, 0.2, mat, center1=center2)
+            elif choose < f32(0.95):
+                ar = f32(0.5) + f32(0.5) * nxt()
+                ag = f32(0.5) + f32(0.5) * nxt()
+                ab = f32(0.5) + f32(0.5) * nxt()
+                fuzz = f32(0.5) * nxt()
+                b.add_sphere(center, 0.2,
+                             b.add_metal_material((ar, ag, ab), float(fuzz)))
+            else:
+                b.add_sphere(center, 0.2, b.add_dielectric_material(1.5))
+
+    b.add_sphere((0, 1, 0), 1.0, b.add_dielectric_material(1.5))
+    b.add_sphere(
+        (-4, 1, 0), 1.0,
+        b.add_pbr_material(albedo_tex=b.add_solid_texture((0.4, 0.2, 0.1))),
+    )
+    b.add_sphere((3, 1, 0), 1.0, b.add_metal_material((0.7, 0.6, 0.5), 0.0))
+
+    scene = b.build(device=device)
+    return scene, _shirley_config(height, spp)
+
+
+# the JAX package's registry, key for key (flagship_standin is not in it)
+PRESETS = {
+    "shirley": shirley_spheres,
+    "shirley_parity": shirley_parity,
+    "cube": cube,
+    "rustediron": rustediron_globe,
+    "masterchief": masterchief,
+    "masterchief_glb": masterchief_glb,
+    "square": square,
+    "scene": scene_gltf,
+}

@@ -178,6 +178,12 @@ class SceneData(NamedTuple):
         """The same scene with every tensor on ``device``."""
         return SceneData(*(a.to(device) for a in self))
 
+    def numpy(self) -> "SceneData":
+        """The same scene with every field a numpy array on the host (the
+        host-side modules' view: ``flatten``, the oracle)."""
+        return SceneData(*(a.detach().cpu().numpy() if torch.is_tensor(a)
+                           else np.asarray(a) for a in self))
+
 
 def scene_from_numpy(fields, device="cuda") -> SceneData:
     """A scene given as numpy arrays -> ``SceneData`` of tensors on

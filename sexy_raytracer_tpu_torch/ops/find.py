@@ -451,9 +451,9 @@ def resident_inputs(scene, org, dir, time, t_min=None, cull=True):
         [org[:, 0], org[:, 1], org[:, 2], dir[:, 0], dir[:, 1], dir[:, 2],
          time, t_min], {7: _BIG})
     # the closest sphere hit bounds each ray: clusters wholly beyond it
-    # cannot change the answer
+    # cannot change the answer (without triangles there is nothing to cull)
     sph_bound = None
-    if scene.sph_c0.shape[0] > 0:
+    if scene.sph_c0.shape[0] > 0 and scene.tri_v0.shape[0] > 0:
         sph_bound, _ = _sph_candidates(scene, org, dir, time, t_min)
     pack, lists = _scene_lists(scene, org, dir, t_min, sph_bound, nb, cull)
     if pack.shape[0]:
@@ -517,7 +517,34 @@ def _check_sph(sph_pack, device):
 
 
 def _sphere_tc(rays, sph_pack):
-    """Per (ray, sphere) nearest valid root, else BIG: [n, Spad]."""
+    """Per (ray, sphere) nearest valid root, else BIG: [n, Spad].
+
+    On the CPU, in blocks of 512 rays whose [512, Spad] temporaries stay in
+    cache, and only for the rays that could take a root: each pair's
+    arithmetic is the same, and a ray is skipped (BIG) only where no root
+    can reach its t_min. Both roots lie within (|o - c| + r) / |d| of 0
+    (disc <= |d|^2 r^2 by Cauchy-Schwarz), and |o - c| <= |o| + max |c0| +
+    max |dc| |time|. The test's terms are products of up to four such
+    lengths, so the skip also needs |d| and that bound within [1e-9, 1e9]:
+    then no term overflows, and rounding moves a root by far less than the
+    4x margin. Dead rays (t_min 3e38) are the ones this skips."""
+    if rays.is_cuda:
+        return _sphere_tc_block(rays, sph_pack)
+    s = sph_pack
+    d_len = rays[:, 3:6].norm(dim=1)
+    far = rays[:, 0:3].norm(dim=1) + s[:, 0:3].norm(dim=1).max() \
+        + s[:, 3:6].norm(dim=1).max() * rays[:, 6].abs() + s[:, 6].abs().max()
+    skip = (far <= 1e9) & (d_len >= 1e-9) & (d_len <= 1e9) \
+        & (rays[:, 7] > 4.0 * far / d_len)
+    out = torch.full((rays.shape[0], s.shape[0]), _BIG)
+    rows = torch.nonzero(~skip).flatten()
+    for i in range(0, rows.numel(), 512):
+        r = rows[i:i + 512]
+        out[r] = _sphere_tc_block(rays[r], s)
+    return out
+
+
+def _sphere_tc_block(rays, sph_pack):
     ox, oy, oz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]
     dx, dy, dz = rays[:, 3:4], rays[:, 4:5], rays[:, 5:6]
     tm, t_min = rays[:, 6:7], rays[:, 7:8]

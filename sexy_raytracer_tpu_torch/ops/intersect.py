@@ -152,8 +152,22 @@ def emissive_sphere_hit(scene, org, dir, time, t_min):
     by the last-bounce visibility shortcut (render/integrator.py).
     """
     emis = scene.mat_type[scene.sph_mat.long()] == MAT_LIGHT
-    best, arg = _sph_candidates(scene, org, dir, time, t_min, only=emis)
     T = scene.tri_v0.shape[0]
+    if not org.is_cuda:
+        # on the CPU, test the emissive spheres alone (the same roots and
+        # the same first-minimum winner); on the card the masked pass over
+        # every sphere keeps the host from waiting to learn which they are
+        idx = torch.nonzero(emis).flatten()
+        sub = scene._replace(sph_c0=scene.sph_c0[idx],
+                             sph_c1=scene.sph_c1[idx],
+                             sph_t0=scene.sph_t0[idx],
+                             sph_t1=scene.sph_t1[idx],
+                             sph_radius=scene.sph_radius[idx])
+        best, arg = _sph_candidates(sub, org, dir, time, t_min)
+        if idx.numel():
+            arg = torch.where(arg >= 0, idx[arg.clamp(min=0).long()], -1)
+        return best, torch.where(arg >= 0, arg + T, -1).to(torch.int32)
+    best, arg = _sph_candidates(scene, org, dir, time, t_min, only=emis)
     return best, torch.where(arg >= 0, arg + T, -1).to(torch.int32)
 
 

@@ -7,6 +7,7 @@ zlib PNG codec, so the port has no hard native-image dependency.
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 
@@ -37,6 +38,14 @@ def read_png(path, channels=3):
             arr = arr[..., None]
         return arr
     return _read_png_pure(path, channels)
+
+
+def decode_png(data: bytes, channels=3):
+    """Decode an image held in memory (a glTF's embedded or buffer-view
+    image) as uint8 ``[H, W, channels]``, like ``read_png``."""
+    if _HAVE_PIL:
+        return read_png(io.BytesIO(data), channels)
+    return _decode_png_pure(data, channels)
 
 
 def write_png(path, arr):
@@ -89,6 +98,10 @@ def _read_png_pure(path, channels):
             data = f.read()
     except (FileNotFoundError, OSError):
         return None
+    return _decode_png_pure(data, channels)
+
+
+def _decode_png_pure(data, channels):
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         return None
     pos, idat, ihdr = 8, b"", None

@@ -9,7 +9,9 @@ JAX package traces and the two can be compared sample by sample.
 It follows ``jax._src.prng`` with ``jax_threefry_partitionable=True`` (the
 default since jax 0.5):
 
-* ``key(seed)`` is the pair ``(seed >> 32, seed & 0xFFFFFFFF)``;
+* ``key(seed)`` is the pair ``(0, seed & 0xFFFFFFFF)``: with 64-bit
+  types off (jax's default), the seed is cast to 32 bits, so a negative
+  or 64-bit seed keeps only its low word;
 * ``fold_in(k, d)`` is ``threefry2x32(k, (0, d))``;
 * ``bits(k, (n,))`` is ``x0 ^ x1`` of ``threefry2x32(k, (0, i))``, i < n;
 * ``split(k, n)[i]`` is ``fold_in(k, i)`` (partitionable threefry);
@@ -53,10 +55,10 @@ def threefry2x32(k0, k1, x0, x1):
 
 
 def key(seed: int, device=None):
-    """``jax.random.key(seed)`` as a ``[2]`` key tensor."""
-    seed = int(seed)
-    return torch.tensor([(seed >> 32) & _MASK, seed & _MASK],
-                        dtype=torch.int64, device=device)
+    """``jax.random.key(seed)`` as a ``[2]`` key tensor: ``(0, seed mod
+    2^32)``, as jax gives it with 64-bit types off."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
+                        device=device)
 
 
 def fold_in(keys, data):

@@ -746,3 +746,90 @@ def test_place_kernel_matches_plain(dev):
         max_s = vals[order].double().cumsum(0).abs().amax(0) if R else 0.0
         assert bool(((whole.double() - lib).abs()
                      <= 2 * R * 2.0 ** -24 * max_s).all())
+
+
+# -- the Shirley field: spheres only, glass, fuzz, motion and aperture ----
+
+@pytest.fixture(scope="module")
+def shirley_calls(dev):
+    """The calls of kernels 1-4 while ``render_pixels`` traces 65,536
+    camera rays of ``shirley_parity``'s 720p frame (8,192 pixels spread
+    over the frame, spb 8, 4 bounces): an empty triangle pack and up to
+    488 spheres, glass, fuzzy metal and moving spheres."""
+    from sexy_raytracer_tpu_torch.render import integrator, renderer
+
+    scene, cfg = presets.shirley_parity(seed=42, spp=8, height=720,
+                                        device=dev)
+    cam = Camera.from_config(cfg.camera, cfg.aspect, device=dev)
+    P = cfg.width * cfg.height
+    ids = torch.from_numpy(np.linspace(0, P - 1, 8192).astype(np.int32)) \
+        .to(dev)
+    calls = histogram_split.capture_calls(
+        [tfind, tfind, tfind, integrator, integrator],
+        ["find_closest", "any_regroup", "find_any", "hitrec_fused",
+         "shade_carry_fused"],
+        lambda: renderer.render_pixels(
+            scene, cam, ids, 0, rng.key(cfg.seed, dev),
+            torch.tensor(cfg.background, device=dev), width=cfg.width,
+            height=cfg.height, spb=8, spp_total=8, max_bounce=4,
+            last_bounce_vis=True))
+    return scene, calls
+
+
+@pytest.mark.parametrize("bounce", [0, 1, 2])
+def test_find_closest_kernel_on_the_shirley_field(shirley_calls, bounce):
+    """Kernel 1 with no triangles and the field's spheres: no cluster to
+    walk, every sphere tested, the plain version's ids and t bits."""
+    scene, calls = shirley_calls
+    assert len(calls["find_closest"]) == 3
+    inp = calls["find_closest"][bounce]
+    assert inp[2].shape[0] == 0 and inp[5] == 0   # the empty pack
+    assert inp[1].shape[0] == 65536
+    before = tfind.FIND_CLOSEST.launches
+    p_k = _assert_kernel_1(inp)
+    assert tfind.FIND_CLOSEST.launches == before + 1
+    assert 400 <= scene.num_spheres <= 488
+    assert (p_k >= 0).sum() > 1000
+    assert len(torch.unique(p_k[p_k >= 0])) > 50
+
+
+def test_occlusion_kernels_on_the_shirley_field(shirley_calls):
+    """Kernel 2's regrouping pass (every ray against every occluding
+    sphere) and kernel 2 on the last bounce: the ray table, permutation
+    and cull bounds bit for bit, the same flags."""
+    _, calls = shirley_calls
+    (reg,), (anyc,) = calls["any_regroup"], calls["find_any"]
+    got = tfind.any_regroup(*reg)
+    want = tfind.any_regroup_plain(*reg)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    o_k = tfind.find_any(*anyc)
+    o_p = tfind.find_any_plain(*anyc)
+    torch.cuda.synchronize()
+    assert torch.equal(o_k, o_p)
+    live = int((anyc[1][:, 8] >= 0).sum())
+    assert 0 < live
+
+
+def test_fused_kernels_on_the_shirley_bounce_1(shirley_calls):
+    """Kernels 3 and 4 on the field's bounce-1 stacks (glass, fuzz and
+    moving-sphere rows among them), bit for bit."""
+    scene, calls = shirley_calls
+    (hf,) = calls["hitrec_fused"][1]
+    got = tfused.hitrec_fused(hf)
+    want = tfused.hitrec_math(hf)
+    same = (got.view(torch.int32) == want.view(torch.int32)) \
+        | (got.isnan() & want.isnan())
+    assert bool(same.all()), f"{int((~same).sum())} values differ"
+    sf, si = calls["shade_carry_fused"][1]
+    got = tfused.shade_carry_fused(sf, si)
+    want = tfused.shade_carry_math(sf, si)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the wavefront holds glass, fuzzy metal and moving spheres
+    hit = sf[26] > 0.5
+    assert bool((hit & (si[0] == 2)).any())
+    assert bool((hit & (si[0] == 1) & (sf[tfused.SF_GF + 6] > 0)).any())
+    sph = hf[33] > 0.5
+    assert bool((sph & (hf[22:25] != hf[25:28]).any(dim=0)).any())

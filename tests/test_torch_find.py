@@ -518,3 +518,74 @@ def test_walk_counts_on_a_toy(warp_rays):
                            warp_rays)
     assert c == dict(listed=1024, executed=2 * warp_rays * 4,
                      live=2 * 32 * 4, needed=32 * 6)
+
+
+@pytest.mark.parametrize("n_rays", [1, 511, 512, 1300])
+@pytest.mark.parametrize("scale", ["unit", "extreme"])
+def test_cpu_sphere_blocks_match_one_pass(n_rays, scale):
+    """On CPU tensors the plain sphere test runs in 512-ray blocks and
+    skips the rays no root can reach: the same bits as one pass over every
+    ray, also for magnitudes where the skip's bound no longer holds
+    (origins and directions from 1e-30 to 1e30, t_min near 3e38, inf and
+    NaN)."""
+    r = np.random.default_rng(n_rays)
+    rays = torch.tensor(r.normal(size=(n_rays, 9)), dtype=torch.float32)
+    g = torch.Generator().manual_seed(n_rays)
+    dead = torch.rand(n_rays, generator=g) < 0.4
+    rays[:, 7] = torch.where(dead, 3.0e38, 1e-3)
+    if scale == "extreme":
+        mag = 10.0 ** torch.randint(-30, 31, (n_rays, 9), generator=g)
+        rays[:, :7] = rays[:, :7] * mag[:, :7]
+        rays[:, 7] = torch.where(dead, torch.tensor(
+            [3.0e38, 1e30, 1e20, 3.4e38])[torch.arange(n_rays) % 4], 1e-3)
+        rays[::7, 0] = float("inf")
+        rays[::11, 4] = float("nan")
+    sph = torch.tensor(r.normal(size=(37, 8)), dtype=torch.float32)
+    sph[:, 6] = 0.5
+    sph[:, 7] = (torch.arange(37) % 5 != 0).float()
+    if scale == "extreme":
+        # a sphere of radius 1e18 and dead rays at its surface: half_b^2
+        # overflows while a * c does not, so the far root is +inf >= 3e38
+        sph[36] = torch.tensor([0, 0, 0, 0, 0, 0, 1e18, 1])
+        k = torch.arange(min(n_rays, 4))
+        rays[k] = 0.0
+        rays[k, 0] = torch.tensor([1e18, 1.1e18, 1e18, 5e17])[k]
+        rays[k, 3] = torch.tensor([100.0, 100.0, 30.0, 1000.0])[k]
+        rays[k, 7] = 3.0e38
+    got = tfind._sphere_tc(rays, sph)
+    want = tfind._sphere_tc_block(rays, sph)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert n_rays < 500 or bool((got < BIG).any())
+
+
+def test_cpu_emissive_hit_matches_the_masked_pass():
+    """On CPU tensors ``emissive_sphere_hit`` tests the emissive spheres
+    alone: the same t bits and the same winner (the first of equal roots)
+    as the masked pass over every sphere, with two lights at one place, a
+    light behind another and a scene with no light."""
+    from sexy_raytracer_tpu_torch.models.scene import (
+        MAT_LIGHT,
+        SceneBuilder,
+    )
+
+    b = SceneBuilder()
+    light = b.add_light_material(color=(4.0, 4.0, 4.0))
+    grey = b.add_pbr_material()
+    for c, m in (((0, 0, -5), grey), ((0, 0, -6), light), ((1, 0, -6), grey),
+                 ((0, 0, -6), light), ((0, 0, -9), light), ((2, 1, -4), grey)):
+        b.add_sphere(c, 1.0, m, center1=(c[0], c[1] + 0.3, c[2]))
+    scene = b.build(build_bvh=False, device="cpu")
+    org, d, t, _ = (torch.from_numpy(x) for x in _fuzz(2048, 3))
+    d = torch.where(torch.rand(2048, 1) < 0.5,
+                    torch.tensor([0.0, 0.0, -1.0]) + 0.1 * d, d)
+    t_min = torch.full((2048,), 1e-3)
+    emis = scene.mat_type[scene.sph_mat.long()] == MAT_LIGHT
+    for sc in (scene, scene._replace(mat_type=torch.zeros_like(
+            scene.mat_type))):
+        e = emis if sc is scene else torch.zeros_like(emis)
+        t_got, p_got = tint.emissive_sphere_hit(sc, org, d, t, t_min)
+        t_want, a_want = tint._sph_candidates(sc, org, d, t, t_min, only=e)
+        assert torch.equal(t_got.view(torch.int32), t_want.view(torch.int32))
+        assert torch.equal(p_got, torch.where(a_want >= 0, a_want, -1)
+                           .to(torch.int32))
+        assert bool((p_got >= 0).any()) == (sc is scene)

@@ -70,3 +70,37 @@ def test_inverse_rendering_modules_import_no_jax(module):
     assert path.exists()
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", ["models/gltf.py", "models/flatten.py",
+                                    "models/presets.py", "oracle/reference.py",
+                                    "oracle/__init__.py", "__main__.py",
+                                    "utils/png.py"])
+def test_entry_point_modules_import_no_jax(module):
+    """The user entry points (the glTF loader, the flattened export, the
+    preset registry, the numpy oracle and the command line) are in the
+    scan and import none of it."""
+    path = REPO / "sexy_raytracer_tpu_torch" / module
+    assert path.exists()
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """``python -m sexy_raytracer_tpu_torch render`` on the CPU in a
+    process where any import of jax fails."""
+    import subprocess
+    import sys
+
+    script = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.argv = ['sexy_raytracer_tpu_torch', 'render', '--preset', "
+        "'shirley_parity', '--height', '9', '--spp', '1', '--device', "
+        f"'cpu', '--out', {str(tmp_path / 'x.png')!r}]\n"
+        "runpy.run_module('sexy_raytracer_tpu_torch', run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert (tmp_path / "x.png").exists()

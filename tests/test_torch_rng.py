@@ -29,7 +29,8 @@ def pid_sid():
     return pid, sid
 
 
-@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1])
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1, -1, -2**31,
+                                  2**32 + 3])
 def test_key_and_fold_in(seed, pid_sid):
     pid, _ = pid_sid
     jk = jax.random.key(seed)
@@ -95,7 +96,8 @@ def test_shaped_transforms(rng_np):
 
 
 @pytest.mark.parametrize("n", [2, 3])
-@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1])
+@pytest.mark.parametrize("seed", [0, 1, 42, 2**31 - 1, -1, -2**31,
+                                  2**32 + 3])
 def test_split_matches_jax(seed, n, pid_sid):
     """``rng.split`` gives ``jax.random.split``'s words, on one key and on
     a batch of folded keys."""
