@@ -152,18 +152,26 @@ nonzero without a result line:
     CPU tensors within the trace parity budget (atol 2e-5, rtol 1e-5, 0.5%
     of pixels; the rays that differ are named if any do); the frame time
     and Mrays/s; kernel 1, kernel 2 and its pass at the centre chunk, each
-    beside its bound from the sphere tests its rays need;
+    beside its plain version's time and its bound from the sphere tests
+    its rays need;
 10b. the glTF path: the stand-in's relief mesh written as a ``.gltf``
     (embedded base64) and a ``.glb`` (a TRS node over a matrix node), each
     with the albedo PNG and the normal map, loaded by
     ``presets.masterchief(asset=...)`` onto the flagship furniture and
     equal to ``flagship_standin(n=39)`` in every field; the ``.glb``
     scene's counted 720p, 8-spp frame (phase 4's checks); the command line
-    in subprocesses: ``render --preset square`` on the ``.gltf`` at 720p,
-    and ``inverse --preset shirley_parity --height 180`` for 3 steps of
-    4,096 pixels at spb 4 against phase 10's frame downscaled (kernels 5,
-    6 and 7 run there), each exiting 0 and writing a PNG of its size, the
-    inverse run 3 finite losses.
+    in a subprocess: ``render --preset square`` on the ``.gltf`` at 720p,
+    exiting 0 and writing a PNG of its size;
+10c. the command line's ``main(["inverse", "--preset", "shirley_parity",
+    "--height", "180", ...])`` in this process: 3 steps of 4,096 pixels at
+    spb 4 against phase 10's frame downscaled, then the 64-spp preview,
+    with the launch counters around it (per step phase 4's counts of one
+    call and kernels 5, 6 and 7 four times each, then the preview's frame
+    counts, no other kernel); every call of kernels 5, 6 and 7 in the last
+    step held to its plain version with phase 3's checks (the field's
+    glass, fuzz and moving-sphere rows; the field samples no texture, so
+    kernel 7's rows there are all zero); 3 finite losses, a preview of
+    its size.
 
 The last three lines are the kernels' JSON record, nvidia-smi's
 "name, power.limit" line, and ``{"ok": true, "device": {...}}``.
@@ -172,6 +180,7 @@ The last three lines are the kernels' JSON record, nvidia-smi's
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -507,6 +516,7 @@ SHIRLEY_SEED, SHIRLEY_SPP, SHIRLEY_HEIGHT = 42, 8, 720
 SHIRLEY_CPU_PIXELS = 4096
 MIN_KIND_SHARE = 0.001   # of the frame's primary rays, per material kind
 GLTF_SPP, GLTF_HEIGHT = 8, 720
+CLI_STEPS, CLI_PIXELS, CLI_SPB, CLI_PREVIEW_SPP = 3, 4096, 4, 64
 
 
 def frame_plan(cfg):
@@ -736,17 +746,19 @@ def shirley_phase(torch, dev, out_dir, reset_counts, read_counts, smi):
         return sum(t.numel() * t.element_size() for t in ts
                    if hasattr(t, "numel"))
 
-    def timed(name, fn, n_bytes, n_tests, what):
-        ms = time_ms(torch, fn, 20)
+    def timed(name, n_bytes, n_tests, what):
+        kern, plain, inp = held[name]
+        ms = time_ms(torch, lambda: kern(*inp), 20)
+        plain_ms = time_ms(torch, lambda: plain(*inp), 5)
         t_b = n_bytes / HBM_BYTES_PER_S * 1e3
         t_o = n_tests * OPS_PER_SPHERE_TEST / F32_FLOPS_PER_S * 1e3
         bound_by = "bytes" if t_b >= t_o else "operations"
-        log(f"shirley {name} [centre chunk, {what}]: {ms:.4f} ms, bound "
-            f"{max(t_b, t_o):.4f} ms by {bound_by} ({n_tests} sphere "
-            f"tests x {OPS_PER_SPHERE_TEST} ops, {n_bytes / 1e6:.1f} MB) "
-            f"(median, CUDA events, {smi})")
-        return {"ms": ms, "bound_ms": max(t_b, t_o), "bound_by": bound_by,
-                "sphere_tests": n_tests, "case": what}
+        log(f"shirley {name} [centre chunk, {what}]: {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {max(t_b, t_o):.4f} ms by {bound_by} "
+            f"({n_tests} sphere tests x {OPS_PER_SPHERE_TEST} ops, "
+            f"{n_bytes / 1e6:.1f} MB) (median, CUDA events, {smi})")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_b, t_o),
+                "bound_by": bound_by, "sphere_tests": n_tests, "case": what}
 
     live1 = int((k1[1][:, 7] < 1e38).sum())
     n_sph = int((k1[4][:, 7] > 0).sum())
@@ -754,16 +766,14 @@ def shirley_phase(torch, dev, out_dir, reset_counts, read_counts, smi):
     n_occ = int((reg[5][:, 7] > 0).sum())
     timings = {
         "find_closest": timed(
-            "kernel 1 (find_closest)", lambda: find.find_closest(*k1),
-            nbytes(*k1) + 8 * k1[1].shape[0], live1 * n_sph,
-            f"bounce 0, {live1} live rays x {n_sph} spheres"),
+            "find_closest (bounce 0)", nbytes(*k1) + 8 * k1[1].shape[0],
+            live1 * n_sph, f"bounce 0, {live1} live rays x {n_sph} spheres"),
         "any_regroup": timed(
-            "kernel 2's pass (any_regroup)", lambda: find.any_regroup(*reg),
-            nbytes(*reg) + 4 * 12 * k2[1].shape[0], live_r * n_occ,
+            "any_regroup", nbytes(*reg) + 4 * 12 * k2[1].shape[0],
+            live_r * n_occ,
             f"last bounce, {live_r} live rays x {n_occ} occluder spheres"),
         "find_any": timed(
-            "kernel 2 (find_any)", lambda: find.find_any(*k2),
-            nbytes(*k2) + 4 * k2[1].shape[0], 0,
+            "find_any", nbytes(*k2) + 4 * k2[1].shape[0], 0,
             f"last bounce, no triangles: {int((k2[1][:, 8] >= 0).sum())} "
             f"rays left live by the pass"),
     }
@@ -771,19 +781,16 @@ def shirley_phase(torch, dev, out_dir, reset_counts, read_counts, smi):
     return counts, out, timings
 
 
-def gltf_phase(torch, dev, out_dir, shirley_png, reset_counts, read_counts,
-               smi):
+def gltf_phase(torch, dev, out_dir, reset_counts, read_counts, smi):
     """Phase 10b: the stand-in's relief mesh written as a ``.gltf``
     (embedded base64 buffer and images) and as a ``.glb`` (a TRS node over
     a matrix node; the stored vertices undo the nodes' exact transform),
     loaded by ``presets.masterchief`` onto the flagship furniture; both
     scenes equal ``flagship_standin(n=39)``'s; the ``.glb`` scene's
-    counted 720p frame; then the command line in subprocesses: ``render
-    --preset square`` on the ``.gltf`` and ``inverse --preset
-    shirley_parity`` against phase 10's frame downscaled. Returns the
-    frame's launch counts."""
+    counted 720p frame; then the command line in a subprocess: ``render
+    --preset square`` on the ``.gltf``. Returns the frame's launch
+    counts."""
     import base64
-    import struct
 
     from sexy_raytracer_tpu_torch.models import presets
     from sexy_raytracer_tpu_torch.models.scene import SceneBuilder, SceneData
@@ -791,6 +798,7 @@ def gltf_phase(torch, dev, out_dir, shirley_png, reset_counts, read_counts,
     from sexy_raytracer_tpu_torch.ops.intersect import find_hit
     from sexy_raytracer_tpu_torch.render import renderer
     from sexy_raytracer_tpu_torch.render.camera import Camera
+    from sexy_raytracer_tpu_torch.tools.gltf_doc import GltfDoc
     from sexy_raytracer_tpu_torch.utils import color, rng
     from sexy_raytracer_tpu_torch.utils.png import read_png, write_png
 
@@ -816,67 +824,32 @@ def gltf_phase(torch, dev, out_dir, shirley_png, reset_counts, read_counts,
     child[:3, :3] = np.diag([0.25, 4.0, 0.5])
     child[:3, 3] = (0.0, -16.0, 0.0)
 
-    def document(positions, images_in_buffer, nodes):
-        blob = bytearray()
-        views = []
+    def document(positions, images_in_buffer):
+        d = GltfDoc()
+        tex = [d.image(data=b) if images_in_buffer else d.image(
+            uri="data:image/png;base64," + base64.b64encode(b).decode())
+            for b in pngs]
+        m = d.material(base=tex[0], normal=tex[1],
+                       baseColorFactor=[float(x) for x in mat["base_color"]],
+                       metallicFactor=float(mat["metallic"]),
+                       roughnessFactor=float(mat["roughness"]))
+        d.mesh([d.primitive(positions, uv, idx, m)])
+        d.doc["scenes"] = [{"nodes": [0]}]
+        return d
 
-        def view(data):
-            while len(blob) % 4:
-                blob.append(0)
-            views.append({"buffer": 0, "byteOffset": len(blob),
-                          "byteLength": len(data)})
-            blob.extend(data)
-            return len(views) - 1
-
-        acc = [
-            {"bufferView": view(positions.astype(np.float32).tobytes()),
-             "componentType": 5126, "count": len(positions), "type": "VEC3"},
-            {"bufferView": view(uv.astype(np.float32).tobytes()),
-             "componentType": 5126, "count": len(uv), "type": "VEC2"},
-            {"bufferView": view(idx.astype(np.uint32).tobytes()),
-             "componentType": 5125, "count": idx.size, "type": "SCALAR"},
-        ]
-        images = [{"bufferView": view(b), "mimeType": "image/png"}
-                  if images_in_buffer else
-                  {"uri": "data:image/png;base64,"
-                          + base64.b64encode(b).decode()} for b in pngs]
-        doc = {
-            "asset": {"version": "2.0"}, "scenes": [{"nodes": [0]}],
-            "nodes": nodes, "accessors": acc, "bufferViews": views,
-            "images": images, "textures": [{"source": 0}, {"source": 1}],
-            "materials": [{
-                "pbrMetallicRoughness": {
-                    "baseColorTexture": {"index": 0},
-                    "baseColorFactor": list(mat["base_color"]),
-                    "metallicFactor": mat["metallic"],
-                    "roughnessFactor": mat["roughness"]},
-                "normalTexture": {"index": 1}}],
-            "meshes": [{"primitives": [{
-                "attributes": {"POSITION": 0, "TEXCOORD_0": 1},
-                "indices": 2, "material": 0}]}],
-        }
-        return doc, bytes(blob)
-
-    doc, blob = document(pos, False, [{"mesh": 0}])
-    doc["buffers"] = [{"uri": "data:application/octet-stream;base64,"
-                       + base64.b64encode(blob).decode(),
-                       "byteLength": len(blob)}]
+    d = document(pos, False)
+    d.doc["nodes"] = [{"mesh": 0}]
     gltf_path = os.path.join(out_dir, "relief.gltf")
-    with open(gltf_path, "w") as f:
-        json.dump(doc, f)
-    doc, blob = document(
-        pos.astype(np.float64) @ np.linalg.inv(lin).T, True,
-        [{"children": [1], "translation": [0.0, 8.0, 0.0],
-          "rotation": [0.0, 1.0, 0.0, 0.0], "scale": [2.0, 0.5, 4.0]},
-         {"mesh": 0, "matrix": child.T.ravel().tolist()}])
-    doc["buffers"] = [{"byteLength": len(blob)}]
-    js = json.dumps(doc).encode()
-    js += b" " * (-len(js) % 4)
-    body = struct.pack("<II", len(js), 0x4E4F534A) + js \
-        + struct.pack("<II", len(blob), 0x004E4942) + blob
+    with open(gltf_path, "wb") as f:
+        f.write(d.embedded())
+    d = document(pos.astype(np.float64) @ np.linalg.inv(lin).T, True)
+    d.doc["nodes"] = [{"children": [1], "translation": [0.0, 8.0, 0.0],
+                       "rotation": [0.0, 1.0, 0.0, 0.0],
+                       "scale": [2.0, 0.5, 4.0]},
+                      {"mesh": 0, "matrix": child.T.ravel().tolist()}]
     glb_path = os.path.join(out_dir, "relief.glb")
     with open(glb_path, "wb") as f:
-        f.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+        f.write(d.glb())
 
     # both loaded onto the flagship furniture, the stand-in beside them
     # (its iron textures read from the same directory: the sentinels)
@@ -939,45 +912,104 @@ def gltf_phase(torch, dev, out_dir, shirley_png, reset_counts, read_counts,
         raise AssertionError(f"only {100 * share:.2f}% of primary rays hit "
                              "a triangle (need >= 5%)")
 
-    # the command line in subprocesses: render the .gltf as square.gltf,
-    # and 3 inverse steps against phase 10's frame at a quarter of its
-    # height (320x180)
+    # the command line's entry point in a subprocess: the .gltf rendered
+    # as square.gltf
     os.replace(gltf_path, os.path.join(out_dir, "square.gltf"))
+    png = os.path.join(out_dir, "cli_render.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sexy_raytracer_tpu_torch", "render",
+         "--preset", "square", "--data-dir", out_dir, "--height", str(H),
+         "--spp", str(GLTF_SPP), "--out", png],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    tail = [ln for ln in proc.stderr.splitlines() if ln.strip()][-3:]
+    log(f"cli render: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; " + " | ".join(tail))
+    got = read_png(png, 3) if os.path.exists(png) else None
+    if proc.returncode != 0 or got is None or got.shape[:2] != (H, W):
+        raise AssertionError(f"cli render failed:\n{proc.stderr[-3000:]}")
+    log(f"phase 10b: {time.perf_counter() - t10:.1f} s")
+    return counts
+
+
+def cli_inverse_phase(torch, dev, out_dir, shirley_png, reset_counts,
+                      read_counts, hold):
+    """Phase 10c: the command line's ``main(["inverse", "--preset",
+    "shirley_parity", ...])`` in this process against phase 10's frame
+    downscaled to 320x180: 3 steps of 4,096 pixels at spb 4, then the
+    64-spp preview, with the launch counters around it; every call of
+    kernels 5, 6 and 7 in the last step held to its plain version by
+    ``hold(name, inputs, label)`` (phase 3's checks); 3 finite losses and
+    a PNG of the size. Returns the launch counts."""
+    from sexy_raytracer_tpu_torch import __main__ as cli
+    from sexy_raytracer_tpu_torch.models import presets
+    from sexy_raytracer_tpu_torch.ops import _cuda, fused, histogram
+    from sexy_raytracer_tpu_torch.tools.histogram_split import capture_calls
+    from sexy_raytracer_tpu_torch.utils.png import read_png, write_png
+
+    t10 = time.perf_counter()
     target = read_png(shirley_png, 3).astype(np.float64)
     th, tw = target.shape[0] // 4, target.shape[1] // 4
     small = target.reshape(th, 4, tw, 4, 3).mean(axis=(1, 3))
     tgt = os.path.join(out_dir, "shirley_target.png")
     write_png(tgt, np.round(small).astype(np.uint8))
-    here = os.path.dirname(os.path.abspath(__file__))
-    runs = [
-        ("render", ["render", "--preset", "square", "--data-dir", out_dir,
-                    "--height", str(H), "--spp", str(GLTF_SPP)], (H, W)),
-        ("inverse", ["inverse", "--preset", "shirley_parity", "--height",
-                     str(th), "--target", tgt, "--steps", "3",
-                     "--pixels-per-step", "4096", "--spb", "4",
-                     "--losses-out", os.path.join(out_dir, "losses.json")],
-         (th, tw)),
-    ]
-    for name, argv, shape in runs:
-        png = os.path.join(out_dir, f"cli_{name}.png")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "sexy_raytracer_tpu_torch", *argv,
-             "--out", png], cwd=here, capture_output=True, text=True,
-            timeout=600)
-        dt = time.perf_counter() - t0
-        tail = [ln for ln in proc.stderr.splitlines() if ln.strip()][-3:]
-        log(f"cli {name}: exit {proc.returncode} in {dt:.1f} s; "
-            + " | ".join(tail))
-        got = read_png(png, 3) if os.path.exists(png) else None
-        if proc.returncode != 0 or got is None or got.shape[:2] != shape:
-            raise AssertionError(f"cli {name} failed:\n{proc.stderr[-3000:]}")
-    with open(os.path.join(out_dir, "losses.json")) as f:
+    png = os.path.join(out_dir, "cli_inverse.png")
+    losses_path = os.path.join(out_dir, "losses.json")
+    argv = ["inverse", "--preset", "shirley_parity", "--height", str(th),
+            "--target", tgt, "--steps", str(CLI_STEPS), "--pixels-per-step",
+            str(CLI_PIXELS), "--spb", str(CLI_SPB), "--preview-spp",
+            str(CLI_PREVIEW_SPP), "--losses-out", losses_path, "--out", png]
+    # per step one forward call (phase 4's counts) and kernels 5-7 at each
+    # of its 4 bounces (the spheres train, so bounce 0's hit record needs
+    # its gradient too); then the preview frame
+    _, cfg = presets.shirley_parity(height=th, device=dev)
+    preview_calls, _ = frame_plan(dataclasses.replace(
+        cfg, samples_per_pixel=CLI_PREVIEW_SPP))
+    expect = frame_counts(_cuda.KERNELS, CLI_STEPS + preview_calls)
+    expect.update({k: 4 * CLI_STEPS for k in (
+        "srt_hitrec_bwd", "srt_shade_bwd", "srt_histogram")})
+    rcs = []
+    reset_counts()
+    t0 = time.perf_counter()
+    got = capture_calls(
+        [fused, fused, histogram],
+        ["hitrec_bwd", "shade_bwd", "dense_histogram"],
+        lambda: rcs.append(cli.main(argv)))
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"cli inverse launches ({CLI_STEPS} steps of {CLI_PIXELS} pixels x "
+        f"spb {CLI_SPB}, then the {tw}x{th} {CLI_PREVIEW_SPP}-spp preview "
+        f"in {preview_calls} calls): {counts} (expected {expect}); "
+        f"{seconds:.1f} s with the scene's build")
+    if rcs != [0] or counts != expect:
+        raise AssertionError(f"inverse exited {rcs}; launch counts {counts} "
+                             f"!= {expect}")
+    # the last step's calls, bounce 3 first (the backward's order); the
+    # last bounce's hit record gets a zero cotangent (no later bounce reads
+    # it), so there is nothing to hold (tests/test_torch_cuda.py)
+    held = 0
+    for name, calls in got.items():
+        for b, inp in zip((3, 2, 1, 0), calls[-4:]):
+            label = f"cli inverse step {CLI_STEPS} bounce {b}"
+            if name == "hitrec_bwd" and not bool(inp[-1].any()):
+                log(f"kernel {name} [{label}]: zero cotangent, not held")
+                continue
+            hold(name, inp, label)
+            held += 1
+    if held < 11:
+        raise AssertionError(f"cli inverse: {held} of the last step's 12 "
+                             "backward calls held (need 11)")
+    img = read_png(png, 3) if os.path.exists(png) else None
+    with open(losses_path) as f:
         losses = json.load(f)
-    log(f"cli inverse losses: {losses}")
-    if len(losses) != 3 or not np.isfinite(losses).all():
+    log(f"cli inverse: preview {None if img is None else img.shape}, "
+        f"losses {losses}")
+    if img is None or img.shape[:2] != (th, tw):
+        raise AssertionError("cli inverse wrote no preview of the size")
+    if len(losses) != CLI_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"cli inverse wrote losses {losses}")
-    log(f"phase 10b: {time.perf_counter() - t10:.1f} s")
+    log(f"phase 10c: {time.perf_counter() - t10:.1f} s")
     return counts
 
 
@@ -2297,11 +2329,17 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         counts, shirley_png, timings = shirley_phase(
             torch, dev, out_dir, reset_counts, read_counts, smi)
-        counts_b = gltf_phase(torch, dev, out_dir, shirley_png, reset_counts,
-                              read_counts, smi)
+        counts_b = gltf_phase(torch, dev, out_dir, reset_counts, read_counts,
+                              smi)
+        counts_c = cli_inverse_phase(
+            torch, dev, out_dir, shirley_png, reset_counts, read_counts,
+            lambda name, inp, label: check_only(
+                name, inp, kernel_checks[name][0], label))
     for name, c in kernel_checks.items():
         records[name]["launches_by_path"]["shirley"] = counts[c[3].symbol]
         records[name]["launches_by_path"]["gltf"] = counts_b[c[3].symbol]
+        records[name]["launches_by_path"]["cli_inverse"] = \
+            counts_c[c[3].symbol]
     for name, t in timings.items():
         records[name]["shirley"] = t
 

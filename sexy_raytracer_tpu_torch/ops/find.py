@@ -83,6 +83,9 @@ PER_RAY_CULL_MAX_CLUSTERS = 512
 # Elements of one [blocks, RAY_BLOCK, CK] intermediate of the plain find;
 # bounds its memory at large wavefronts.
 _PLAIN_CHUNK_ELEMS = 1 << 24
+# (ray, sphere) pairs of one block of the plain sphere test: 1 MiB a
+# float32 temporary, which the CPU's caches hold (the test's speed there)
+_TC_BLOCK_PAIRS = 1 << 18
 # Rays per block of the streamed find: four consumer warps of 64 rays
 # (the any-hit kernel takes RAY_BLOCK: two).
 STREAM_RAY_BLOCK = 256
@@ -519,27 +522,26 @@ def _check_sph(sph_pack, device):
 def _sphere_tc(rays, sph_pack):
     """Per (ray, sphere) nearest valid root, else BIG: [n, Spad].
 
-    On the CPU, in blocks of 512 rays whose [512, Spad] temporaries stay in
-    cache, and only for the rays that could take a root: each pair's
-    arithmetic is the same, and a ray is skipped (BIG) only where no root
-    can reach its t_min. Both roots lie within (|o - c| + r) / |d| of 0
-    (disc <= |d|^2 r^2 by Cauchy-Schwarz), and |o - c| <= |o| + max |c0| +
-    max |dc| |time|. The test's terms are products of up to four such
-    lengths, so the skip also needs |d| and that bound within [1e-9, 1e9]:
-    then no term overflows, and rounding moves a root by far less than the
-    4x margin. Dead rays (t_min 3e38) are the ones this skips."""
-    if rays.is_cuda:
-        return _sphere_tc_block(rays, sph_pack)
+    In blocks of about ``_TC_BLOCK_PAIRS`` (ray, sphere) pairs, whose
+    temporaries stay small, and only for the rays that could take a root:
+    each pair's arithmetic is the same, and a ray is skipped (BIG) only
+    where no root can reach its t_min. Both roots lie within (|o - c| + r)
+    / |d| of 0 (disc <= |d|^2 r^2 by Cauchy-Schwarz), and |o - c| <= |o| +
+    max |c0| + max |dc| |time|. The test's terms are products of up to four
+    such lengths, so the skip also needs |d| and that bound within [1e-9,
+    1e9]: then no term overflows, and rounding moves a root by far less
+    than the 4x margin. Dead rays (t_min 3e38) are the ones this skips."""
     s = sph_pack
     d_len = rays[:, 3:6].norm(dim=1)
     far = rays[:, 0:3].norm(dim=1) + s[:, 0:3].norm(dim=1).max() \
         + s[:, 3:6].norm(dim=1).max() * rays[:, 6].abs() + s[:, 6].abs().max()
     skip = (far <= 1e9) & (d_len >= 1e-9) & (d_len <= 1e9) \
         & (rays[:, 7] > 4.0 * far / d_len)
-    out = torch.full((rays.shape[0], s.shape[0]), _BIG)
+    out = torch.full((rays.shape[0], s.shape[0]), _BIG, device=rays.device)
     rows = torch.nonzero(~skip).flatten()
-    for i in range(0, rows.numel(), 512):
-        r = rows[i:i + 512]
+    block = max(512, _TC_BLOCK_PAIRS // max(1, s.shape[0]))
+    for i in range(0, rows.numel(), block):
+        r = rows[i:i + block]
         out[r] = _sphere_tc_block(rays[r], s)
     return out
 

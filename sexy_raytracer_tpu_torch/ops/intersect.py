@@ -130,44 +130,42 @@ def sphere_roots(scene, org, dir, time, t_min, t_max=float("inf")):
     return torch.where(ok0, root0, root1), ok0 | ok1
 
 
-def _sph_candidates(scene, org, dir, time, t_min, only=None):
-    """Closest sphere per ray -> (t [R] (+inf = none), sphere idx [R]).
-    ``only`` [S] bool restricts the candidates."""
+def _sph_candidates(scene, org, dir, time, t_min):
+    """Closest sphere per ray -> (t [R] (+inf = none), sphere idx [R])."""
     S = scene.sph_c0.shape[0]
     R = org.shape[0]
     if S == 0:
         return (torch.full((R,), float("inf"), device=org.device),
                 torch.full((R,), -1, dtype=torch.int32, device=org.device))
     root, valid = sphere_roots(scene, org, dir, time, t_min)
-    if only is not None:
-        valid = valid & only[None, :]
     best, arg = torch.min(torch.where(valid, root, float("inf")), dim=1)
     return best, torch.where(torch.isfinite(best), arg.to(torch.int32), -1)
 
 
-def emissive_sphere_hit(scene, org, dir, time, t_min):
+def emissive_spheres(scene):
+    """Indices ``[E]`` (int64) of the emissive spheres; one host sync on
+    the card, so a caller that asks many times computes it once."""
+    return torch.nonzero(
+        scene.mat_type[scene.sph_mat.long()] == MAT_LIGHT).flatten()
+
+
+def emissive_sphere_hit(scene, org, dir, time, t_min, emissive=None):
     """Closest EMISSIVE-sphere hit -> ``(t [R] (+inf = none), prim [R])``.
 
     ``prim`` is the global primitive id (T + sphere index, -1 = none). Used
-    by the last-bounce visibility shortcut (render/integrator.py).
+    by the last-bounce visibility shortcut (render/integrator.py). Only the
+    spheres ``emissive`` (``emissive_spheres(scene)``, computed here when
+    not given) are tested: the same roots, and the same first-minimum
+    winner, as a pass over every sphere masked to the emissive ones.
     """
-    emis = scene.mat_type[scene.sph_mat.long()] == MAT_LIGHT
+    idx = emissive_spheres(scene) if emissive is None else emissive
+    sub = scene._replace(sph_c0=scene.sph_c0[idx], sph_c1=scene.sph_c1[idx],
+                         sph_t0=scene.sph_t0[idx], sph_t1=scene.sph_t1[idx],
+                         sph_radius=scene.sph_radius[idx])
+    best, arg = _sph_candidates(sub, org, dir, time, t_min)
+    if idx.numel():
+        arg = torch.where(arg >= 0, idx[arg.clamp(min=0).long()], -1)
     T = scene.tri_v0.shape[0]
-    if not org.is_cuda:
-        # on the CPU, test the emissive spheres alone (the same roots and
-        # the same first-minimum winner); on the card the masked pass over
-        # every sphere keeps the host from waiting to learn which they are
-        idx = torch.nonzero(emis).flatten()
-        sub = scene._replace(sph_c0=scene.sph_c0[idx],
-                             sph_c1=scene.sph_c1[idx],
-                             sph_t0=scene.sph_t0[idx],
-                             sph_t1=scene.sph_t1[idx],
-                             sph_radius=scene.sph_radius[idx])
-        best, arg = _sph_candidates(sub, org, dir, time, t_min)
-        if idx.numel():
-            arg = torch.where(arg >= 0, idx[arg.clamp(min=0).long()], -1)
-        return best, torch.where(arg >= 0, arg + T, -1).to(torch.int32)
-    best, arg = _sph_candidates(scene, org, dir, time, t_min, only=emis)
     return best, torch.where(arg >= 0, arg + T, -1).to(torch.int32)
 
 

@@ -38,6 +38,7 @@ from sexy_raytracer_tpu_torch.ops.fused import (
 from sexy_raytracer_tpu_torch.ops.intersect import (
     T_MIN_DEFAULT,
     emissive_sphere_hit,
+    emissive_spheres,
     find_hit,
     hit_data,
 )
@@ -157,6 +158,10 @@ def trace_rays_fused(scene, org, dir, time, keys, background,
     f32 = torch.float32
 
     # -- scene-only packs, once per wavefront --
+    if last_bounce_vis:
+        # before any of the wavefront's work is queued: the index costs
+        # the host one wait on an almost empty stream
+        emissive = emissive_spheres(scene)
     if T > 0:
         tri_pack = torch.cat(
             [scene.tri_v0, scene.tri_v1, scene.tri_v2,
@@ -284,7 +289,7 @@ def trace_rays_fused(scene, org, dir, time, keys, background,
             org_f, dir_f, alive, t_min = rays_of(carry)
             org_f, dir_f = org_f.contiguous(), dir_f.contiguous()
             t_em, em_prim = emissive_sphere_hit(scene, org_f, dir_f, time,
-                                                t_min)
+                                                t_min, emissive)
             emis = scene.mat_type[scene.sph_mat.long()] == MAT_LIGHT
             bound = torch.where(
                 alive, torch.where(torch.isfinite(t_em), t_em, _BIG), -_BIG)

@@ -14,11 +14,13 @@ device time of the placement kernel's wrapper beside ``index_copy_``'s at
 the tools' first A/B case. It also prints the host microseconds per
 ``Kernel.launch`` of the placement kernel on a one-row table (a launch that
 does no work) and per ``place`` call, over 1,000 calls. ``e2e`` times the
-frame and the train step. ``chip_smoke.py`` builds its scene and train
-step with ``train_setup``, captures wrapper calls with ``capture_calls``
-and times steps with ``run_steps``, as this tool does. It uses only what
-every version of the port since the placement kernel has, so it measures
-an older checkout as well.
+frame, the train step and the Shirley frame (with its peak memory).
+``chip_smoke.py`` builds its scene and train step with ``train_setup``,
+captures wrapper calls with ``capture_calls`` and times steps with
+``run_steps``, as this tool does. ``split`` uses only what every version
+of the port since the placement kernel has, and ``e2e`` what every version
+since ``presets.shirley_parity`` has, so either measures an older checkout
+as well (copy this file into it).
 """
 
 from __future__ import annotations
@@ -142,7 +144,26 @@ def end_to_end(device="cuda", frames=2, n_steps=8):
     state, _, _ = run_steps(step, state, *args, 2, 100, device)
     _, losses, step_s = run_steps(step, state, *args, n_steps, 1, device)
     return dict(frame_s=frame_s, step_ms=step_s * 1e3, steps=n_steps,
-                loss=float(losses[-1]))
+                loss=float(losses[-1]), **shirley_frames(device, frames))
+
+
+def shirley_frames(device="cuda", frames=2):
+    """``chip_smoke.py`` phase 10's frame (``shirley_parity(seed=42)``,
+    1280x720, 8 spp): host clock around ``render_image`` after one warm-up
+    frame, and the peak device memory of the timed frames."""
+    scene, cfg = presets.shirley_parity(seed=42, spp=8, height=720,
+                                        device=device)
+    render_image(scene, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frame_s = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        render_image(scene, cfg)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    return dict(shirley_frame_s=frame_s,
+                shirley_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def wide_input(device="cuda"):
@@ -309,7 +330,7 @@ def main(argv=None):
     ap.add_argument("cmd", nargs="?", default="split",
                     choices=["split", "e2e"],
                     help="split: the histogram and launch-path rows; e2e: "
-                         "the frame and train-step times")
+                         "the frame, train-step and Shirley frame times")
     ap.add_argument("--out", default=None, help="also write the rows here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

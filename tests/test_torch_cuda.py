@@ -833,3 +833,46 @@ def test_fused_kernels_on_the_shirley_bounce_1(shirley_calls):
     assert bool((hit & (si[0] == 1) & (sf[tfused.SF_GF + 6] > 0)).any())
     sph = hf[33] > 0.5
     assert bool((sph & (hf[22:25] != hf[25:28]).any(dim=0)).any())
+
+
+def test_backward_kernels_on_the_shirley_field(dev):
+    """Kernels 5, 6 and 7 in a train-step backward on the field at 128x72
+    (the spheres' centres, radii and materials trained): every launch
+    against its plain version on the same inputs, the VJPs as in
+    ``test_vjp_kernels_match_plain``, the histogram bit for bit (its rows
+    are zero here: the field samples no texture)."""
+    scene, cfg = presets.shirley_parity(seed=42, height=72, device="cpu")
+    names = tuple(n for n in DEFAULT_TRAINABLE
+                  if getattr(scene, n).numel() > 0)
+    calls = histogram_split.capture_calls(
+        [tfused, tfused, thist], ["hitrec_bwd", "shade_bwd",
+                                  "dense_histogram"],
+        lambda: _grads(scene, cfg, torch.from_numpy(sample_tile_ids(
+            np.random.default_rng(3), cfg.width, cfg.height, 2048)), dev,
+            names))
+    assert [len(calls[k]) for k in calls] == [4, 4, 4]
+    hit_calls = [c for c in calls["hitrec_bwd"] if bool(c[1].any())]
+    assert len(hit_calls) >= 3
+    for hf, g in hit_calls:
+        g = checks.unit_cotangent(g)
+        got = tfused.hitrec_bwd(hf, g)
+        want = tfused.hitrec_vjp_plain(hf, g)
+        ill = checks.ill_conditioned_lanes(hf, tfused.hitrec_math(hf))
+        checks.vjp_outside(got, want, ill)
+        assert checks.vjp_check_power(got, want, ill) > 0
+    for sf, si, g in calls["shade_bwd"]:
+        g = checks.unit_cotangent(g)
+        got = tfused.shade_bwd(sf, si, g)
+        want = tfused.shade_vjp_plain(sf, si, g)
+        checks.vjp_outside(got, want)
+        assert checks.vjp_check_power(got, want) > 0
+    for idx, vals, n_bins in calls["dense_histogram"]:
+        got = thist.dense_histogram(idx, vals, n_bins)
+        want = thist.dense_histogram_plain(idx, vals, n_bins)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # the backward saw the field's glass, fuzz and moving spheres
+    sf, si, _ = calls["shade_bwd"][-1]
+    hit = sf[26] > 0.5
+    assert bool((hit & (si[0] == 2)).any())
+    assert bool((hit & (si[0] == 1) & (sf[tfused.SF_GF + 6] > 0)).any())

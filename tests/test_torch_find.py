@@ -522,12 +522,12 @@ def test_walk_counts_on_a_toy(warp_rays):
 
 @pytest.mark.parametrize("n_rays", [1, 511, 512, 1300])
 @pytest.mark.parametrize("scale", ["unit", "extreme"])
-def test_cpu_sphere_blocks_match_one_pass(n_rays, scale):
-    """On CPU tensors the plain sphere test runs in 512-ray blocks and
-    skips the rays no root can reach: the same bits as one pass over every
-    ray, also for magnitudes where the skip's bound no longer holds
-    (origins and directions from 1e-30 to 1e30, t_min near 3e38, inf and
-    NaN)."""
+def test_cpu_sphere_blocks_match_one_pass(n_rays, scale, monkeypatch):
+    """The plain sphere test runs in blocks (here of 512 rays) and skips
+    the rays no root can reach: the same bits as one pass over every ray,
+    also for magnitudes where the skip's bound no longer holds (origins
+    and directions from 1e-30 to 1e30, t_min near 3e38, inf and NaN)."""
+    monkeypatch.setattr(tfind, "_TC_BLOCK_PAIRS", 512 * 37)
     r = np.random.default_rng(n_rays)
     rays = torch.tensor(r.normal(size=(n_rays, 9)), dtype=torch.float32)
     g = torch.Generator().manual_seed(n_rays)
@@ -559,10 +559,10 @@ def test_cpu_sphere_blocks_match_one_pass(n_rays, scale):
 
 
 def test_cpu_emissive_hit_matches_the_masked_pass():
-    """On CPU tensors ``emissive_sphere_hit`` tests the emissive spheres
-    alone: the same t bits and the same winner (the first of equal roots)
-    as the masked pass over every sphere, with two lights at one place, a
-    light behind another and a scene with no light."""
+    """``emissive_sphere_hit`` tests the emissive spheres alone: the same t
+    bits and the same winner (the first of equal roots) as the masked pass
+    over every sphere, with two lights at one place, a light behind
+    another and a scene with no light; with its index given or not."""
     from sexy_raytracer_tpu_torch.models.scene import (
         MAT_LIGHT,
         SceneBuilder,
@@ -583,9 +583,14 @@ def test_cpu_emissive_hit_matches_the_masked_pass():
     for sc in (scene, scene._replace(mat_type=torch.zeros_like(
             scene.mat_type))):
         e = emis if sc is scene else torch.zeros_like(emis)
-        t_got, p_got = tint.emissive_sphere_hit(sc, org, d, t, t_min)
-        t_want, a_want = tint._sph_candidates(sc, org, d, t, t_min, only=e)
-        assert torch.equal(t_got.view(torch.int32), t_want.view(torch.int32))
-        assert torch.equal(p_got, torch.where(a_want >= 0, a_want, -1)
-                           .to(torch.int32))
+        root, valid = tint.sphere_roots(sc, org, d, t, t_min)
+        t_want, a_want = torch.min(
+            torch.where(valid & e[None, :], root, float("inf")), dim=1)
+        a_want = torch.where(torch.isfinite(t_want), a_want, -1)
+        for given in (None, tint.emissive_spheres(sc)):
+            t_got, p_got = tint.emissive_sphere_hit(sc, org, d, t, t_min,
+                                                    given)
+            assert torch.equal(t_got.view(torch.int32),
+                               t_want.view(torch.int32))
+            assert torch.equal(p_got, a_want.to(torch.int32))
         assert bool((p_got >= 0).any()) == (sc is scene)

@@ -7,7 +7,6 @@ the ``data_dir`` fixture where the reference assets are absent."""
 import base64
 import json
 import os
-import struct
 
 import numpy as np
 import pytest
@@ -26,6 +25,7 @@ from sexy_raytracer_tpu_torch.models.scene import (  # noqa: E402
     SceneBuilder as TBuilder,
     SceneData,
 )
+from sexy_raytracer_tpu_torch.tools.gltf_doc import GltfDoc  # noqa: E402
 from sexy_raytracer_tpu_torch.utils import png as tpng  # noqa: E402
 
 VERTEX_FIELDS = ("tri_v0", "tri_v1", "tri_v2")
@@ -53,71 +53,22 @@ def _images(seed):
             r.integers(100, 256, (4, 8, 3)).astype(np.uint8))
 
 
-class _Doc:
-    """A glTF document under construction, with one binary buffer."""
-
-    def __init__(self):
-        self.blob = bytearray()
-        self.doc = {"asset": {"version": "2.0"}, "accessors": [],
-                    "bufferViews": [], "buffers": [], "images": [],
-                    "textures": [], "materials": [], "meshes": [],
-                    "nodes": []}
-
-    def view(self, data: bytes, stride=None):
-        while len(self.blob) % 4:
-            self.blob.append(0)
-        bv = {"buffer": 0, "byteOffset": len(self.blob),
-              "byteLength": len(data)}
-        if stride:
-            bv["byteStride"] = stride
-        self.blob += data
-        self.doc["bufferViews"].append(bv)
-        return len(self.doc["bufferViews"]) - 1
-
-    def accessor(self, view, ctype, count, typ, offset=0):
-        a = {"bufferView": view, "componentType": ctype, "count": count,
-             "type": typ}
-        if offset:
-            a["byteOffset"] = offset
-        self.doc["accessors"].append(a)
-        return len(self.doc["accessors"]) - 1
-
-    def image(self, uri=None, data=None):
-        img = {"uri": uri} if uri is not None else {
-            "bufferView": self.view(data), "mimeType": "image/png"}
-        self.doc["images"].append(img)
-        self.doc["textures"].append({"source": len(self.doc["images"]) - 1})
-        return len(self.doc["textures"]) - 1
-
-    def material(self, base=None, normal=None, mr=None, **factors):
-        pbr = dict(factors)
-        if base is not None:
-            pbr["baseColorTexture"] = {"index": base}
-        if mr is not None:
-            pbr["metallicRoughnessTexture"] = {"index": mr}
-        m = {"pbrMetallicRoughness": pbr}
-        if normal is not None:
-            m["normalTexture"] = {"index": normal}
-        self.doc["materials"].append(m)
-        return len(self.doc["materials"]) - 1
-
-    def mesh(self, prims):
-        self.doc["meshes"].append({"primitives": prims})
-        return len(self.doc["meshes"]) - 1
+class _Doc(GltfDoc):
+    """A glTF document under construction, with one binary buffer, and
+    the unit cube's primitives."""
 
     def cube_primitive(self, index_type=np.uint16, interleaved=False,
                        material=None, offset=np.zeros(3, np.float32)):
         pos = CUBE_POS + offset
-        if interleaved:
-            # one view, POSITION and TEXCOORD_0 interleaved at a 20-byte
-            # stride, the uvs at an accessor byteOffset of 12
-            rows = np.concatenate([pos, CUBE_UV], axis=1).astype(np.float32)
-            v = self.view(rows.tobytes(), stride=20)
-            p = self.accessor(v, 5126, 8, "VEC3")
-            t = self.accessor(v, 5126, 8, "VEC2", offset=12)
-        else:
-            p = self.accessor(self.view(pos.tobytes()), 5126, 8, "VEC3")
-            t = self.accessor(self.view(CUBE_UV.tobytes()), 5126, 8, "VEC2")
+        if not interleaved:
+            return self.primitive(pos, CUBE_UV, CUBE_IDX, material,
+                                  index_type)
+        # one view, POSITION and TEXCOORD_0 interleaved at a 20-byte
+        # stride, the uvs at an accessor byteOffset of 12
+        rows = np.concatenate([pos, CUBE_UV], axis=1).astype(np.float32)
+        v = self.view(rows.tobytes(), stride=20)
+        p = self.accessor(v, 5126, 8, "VEC3")
+        t = self.accessor(v, 5126, 8, "VEC2", offset=12)
         ctype = 5123 if index_type == np.uint16 else 5125
         i = self.accessor(self.view(CUBE_IDX.astype(index_type).tobytes()),
                           ctype, CUBE_IDX.size, "SCALAR")
@@ -126,24 +77,6 @@ class _Doc:
         if material is not None:
             prim["material"] = material
         return prim
-
-    def embedded(self):
-        doc = dict(self.doc)
-        doc["buffers"] = [{
-            "uri": "data:application/octet-stream;base64,"
-                   + base64.b64encode(bytes(self.blob)).decode(),
-            "byteLength": len(self.blob)}]
-        return json.dumps(doc).encode()
-
-    def glb(self):
-        doc = dict(self.doc)
-        doc["buffers"] = [{"byteLength": len(self.blob)}]
-        js = json.dumps(doc).encode()
-        js += b" " * (-len(js) % 4)
-        bin_ = bytes(self.blob) + b"\0" * (-len(self.blob) % 4)
-        body = struct.pack("<II", len(js), 0x4E4F534A) + js \
-            + struct.pack("<II", len(bin_), 0x004E4942) + bin_
-        return struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body
 
 
 def _load_both(path, **kw):
