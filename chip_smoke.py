@@ -173,6 +173,28 @@ nonzero without a result line:
     kernel 7's rows there are all zero); 3 finite losses, a preview of
     its size.
 
+11. the mesh paths (``parallel/``, ``make_train_step(mesh=)``,
+    ``inverse_render(mesh=)``, ``graft_entry``):
+    11a. one rank over NCCL on a (1, 1) mesh: ``render_sharded`` of the
+    stand-in at 720p, 8 spp, counted (phase 4's counts), its float image
+    phase 4's bit for bit; three ``make_train_step(mesh=)`` steps of
+    phase 6's batch, counted (phase 6's counts per step), losses and
+    parameters bit-equal to the same steps without a mesh; five steps of
+    phase 9's ``inverse_render`` with and without the mesh, bit-equal;
+    the frame's seconds and the step's ms beside the same without the
+    mesh, in turns, and phases 5-6;
+    11b. two ranks sharing the card over gloo (NCCL refuses two ranks on
+    one GPU; the phase names gloo itself): the (2, 1) frame within the
+    trace parity budget of 11a's (the pixels outside named), the (1, 2)
+    frame within atol 2e-5, rtol 1e-4 (tests/test_parallel.py:53); three
+    steps on (2, 1), bit-identical across the ranks, losses within
+    relative 1e-5 of 11a's steps without a mesh, step 0's gradient within
+    bench.py:192's gate; the seconds, which are no scaling figure;
+    11c. ``graft_entry.entry()``'s fn on the card ([2048, 3], finite), and
+    ``python -m sexy_raytracer_tpu_torch.graft_entry dryrun 1`` (one NCCL
+    rank on the card, its default) in a subprocess, exiting 0 with its
+    line.
+
 The last three lines are the kernels' JSON record, nvidia-smi's
 "name, power.limit" line, and ``{"ok": true, "device": {...}}``.
 """
@@ -279,7 +301,9 @@ def inverse_phase(torch, dev, scene, cfg, relief, train_per_step, step6_s,
 
     ``relief``: [H, W] bool, the pixels whose primary ray hits the mesh.
     ``train_per_step``: phase 6's launch counts per train step; ``step6_s``
-    its seconds per step. Returns the CRN run's launch counts.
+    its seconds per step. Returns the CRN run's launch counts and its
+    setup (the perturbed scene, target, config and ``inverse_render``
+    arguments).
     """
     import dataclasses
 
@@ -507,7 +531,7 @@ def inverse_phase(torch, dev, scene, cfg, relief, train_per_step, step6_s,
             or rel_s > 1e-2:
         raise AssertionError("silhouette gradient gate failed")
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
-    return counts
+    return counts, dict(scene=perturbed, target=target, cfg=cfg16, kw=kw)
 
 
 # phase 10: the Shirley field (glass, fuzz, motion, aperture) through the
@@ -1011,6 +1035,313 @@ def cli_inverse_phase(torch, dev, out_dir, shirley_png, reset_counts,
         raise AssertionError(f"cli inverse wrote losses {losses}")
     log(f"phase 10c: {time.perf_counter() - t10:.1f} s")
     return counts
+
+
+# phase 11: the mesh paths
+MESH_STEPS, MESH_INV_STEPS, MESH_TIMED_STEPS = 3, 5, 8
+
+
+def mesh_phase(torch, dev, scene, cfg, camera, frame_float, frame_s,
+               train_ids, train_tgt, step6_s, inverse_setup, train_per_step,
+               n_chunks, reset_counts, read_counts, smi):
+    """Phase 11a: one NCCL rank, a (1, 1) mesh on this card. The sharded
+    frame (counted) equals phase 4's float image bit for bit; three train
+    steps with the mesh (counted) equal three without it, and five steps of
+    phase 9's ``inverse_render`` likewise; the frame's seconds and the
+    step's ms beside the same without a mesh, in turns, and phases 5-6.
+    Returns the sharded frame's and steps' launch counts and the reference
+    of the steps without a mesh (losses, step 0's loss and gradients)."""
+    import torch.distributed as dist
+
+    from sexy_raytracer_tpu_torch.diff.inverse import (
+        inverse_render,
+        make_optimizer,
+        make_train_step,
+    )
+    from sexy_raytracer_tpu_torch.diff.params import extract_params
+    from sexy_raytracer_tpu_torch.models.scene import SceneData
+    from sexy_raytracer_tpu_torch.ops import _cuda
+    from sexy_raytracer_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        render_sharded,
+        shard_rays,
+    )
+    from sexy_raytracer_tpu_torch.parallel.mesh import free_port
+    from sexy_raytracer_tpu_torch.render import renderer
+    from sexy_raytracer_tpu_torch.render.integrator import (
+        scene_no_emissive_tris,
+    )
+    from sexy_raytracer_tpu_torch.tools.histogram_split import (
+        TRAIN_SPB,
+        run_steps,
+    )
+    from sexy_raytracer_tpu_torch.utils import rng
+
+    t11 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        if dist.get_backend() != want:
+            raise AssertionError(f"backend {dist.get_backend()}, not {want}")
+        mesh = make_mesh(1, 1, device_type=dev.type)
+
+        reset_counts()
+        t0 = time.perf_counter()
+        img = render_sharded(scene, cfg, mesh)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        frame_n = read_counts()
+        expect = frame_counts(_cuda.KERNELS, n_chunks)
+        log(f"sharded frame launches, (1, 1) mesh over NCCL: {frame_n} "
+            f"(expected {expect})")
+        if frame_n != expect:
+            raise AssertionError(f"launch counts {frame_n} != {expect}")
+        differ = np.argwhere((img != frame_float).any(axis=-1))
+        if img.shape != frame_float.shape or len(differ):
+            raise AssertionError(
+                f"the sharded frame differs from phase 4's in {len(differ)} "
+                f"pixels (row, col), first {differ[:8].tolist()}")
+        frame_s_by = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            t0 = time.perf_counter()
+            if name == "plain":
+                renderer.render(scene, cfg)
+            else:
+                render_sharded(scene, cfg, mesh)
+            torch.cuda.synchronize()
+            frame_s_by[name].append(time.perf_counter() - t0)
+        sharded_s, plain_s = frame_s_by["mesh"], frame_s_by["plain"]
+        log(f"sharded frame on a (1, 1) mesh: bit-equal to phase 4's float "
+            f"image; the first {first_s:.3f} s (with the NCCL "
+            f"communicators' set-up), then {sharded_s[0]:.3f} / "
+            f"{sharded_s[1]:.3f} s, without the mesh {plain_s[0]:.3f} / "
+            f"{plain_s[1]:.3f} s in turns (plain, mesh, mesh, plain: mesh - "
+            f"plain {(sum(sharded_s) - sum(plain_s)) / 2 * 1e3:.1f} ms a "
+            f"frame); phase 5's frame {frame_s:.3f} s (host clock, {smi})")
+
+        vis_ok = scene_no_emissive_tris(scene)
+
+        def new_step(m):
+            step = make_train_step(
+                cfg, make_optimizer(extract_params(scene), 1e-3),
+                spb=TRAIN_SPB, last_bounce_vis=vis_ok, mesh=m)
+            return step, step.init(extract_params(scene))
+
+        plain, p_state = new_step(None)
+        sharded, s_state = new_step(mesh)
+        loss0, grads0 = plain.value_and_grad(p_state.params, scene, camera,
+                                             train_ids, train_tgt,
+                                             rng.key(0, dev))
+        p_state, p_losses, _ = run_steps(plain, p_state, scene, camera,
+                                         train_ids, train_tgt, MESH_STEPS, 0,
+                                         dev)
+        s_ids, s_tgt = shard_rays(train_ids, mesh), shard_rays(train_tgt, mesh)
+        reset_counts()
+        s_state, s_losses, _ = run_steps(sharded, s_state, scene, camera,
+                                         s_ids, s_tgt, MESH_STEPS, 0, dev)
+        step_n = read_counts()
+        expect = {k: MESH_STEPS * v for k, v in train_per_step.items()}
+        log(f"sharded train launches over {MESH_STEPS} steps: {step_n} "
+            f"(expected {expect})")
+        if step_n != expect:
+            raise AssertionError(f"launch counts {step_n} != {expect}")
+        p_losses = [float(x) for x in p_losses]
+        s_losses = [float(x) for x in s_losses]
+        same = [k for k in p_state.params
+                if torch.equal(p_state.params[k], s_state.params[k])]
+        log(f"sharded train steps on a (1, 1) mesh: losses {s_losses}, "
+            f"without the mesh {p_losses}; parameters bit-equal: "
+            f"{len(same)} of {len(p_state.params)}")
+        if s_losses != p_losses or len(same) != len(p_state.params):
+            raise AssertionError("the (1, 1) mesh's steps differ from the "
+                                 "steps without a mesh")
+        step_ms = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            if name == "plain":
+                p_state, _, sec = run_steps(plain, p_state, scene, camera,
+                                            train_ids, train_tgt,
+                                            MESH_TIMED_STEPS, 100, dev)
+            else:
+                s_state, _, sec = run_steps(sharded, s_state, scene, camera,
+                                            s_ids, s_tgt, MESH_TIMED_STEPS,
+                                            100, dev)
+            step_ms[name].append(sec * 1e3)
+        log(f"sharded train step: {step_ms['mesh'][0]:.3f} / "
+            f"{step_ms['mesh'][1]:.3f} ms, without the mesh "
+            f"{step_ms['plain'][0]:.3f} / {step_ms['plain'][1]:.3f} ms in "
+            f"turns (plain, mesh, mesh, plain; mean of {MESH_TIMED_STEPS} "
+            f"steps each, host clock); phase 6's step {step6_s * 1e3:.3f} "
+            f"ms; {smi}")
+
+        inv = inverse_setup
+        runs = [inverse_render(inv["scene"], inv["target"], inv["cfg"],
+                               n_steps=MESH_INV_STEPS, mesh=m, **inv["kw"])
+                for m in (None, mesh)]
+        (opt_p, losses_p), (opt_s, losses_s) = runs
+        differ = [k for k in SceneData._fields
+                  if not torch.equal(getattr(opt_p, k), getattr(opt_s, k))]
+        log(f"inverse_render on a (1, 1) mesh, {MESH_INV_STEPS} steps of "
+            f"phase 9's CRN run: losses {losses_s}, without the mesh "
+            f"{losses_p}; scene fields that differ: {differ}")
+        if losses_s != losses_p or differ:
+            raise AssertionError("inverse_render(mesh=) differs from the "
+                                 "call without a mesh")
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 11a: {time.perf_counter() - t11:.1f} s")
+    return frame_n, step_n, img, dict(
+        losses=p_losses, loss0=float(loss0),
+        grads0={k: g.double().cpu() for k, g in grads0.items()})
+
+
+def _two_ranks_on_one_card(device_type):
+    """A rank of phase 11b: the stand-in's frame on (2, 1) and (1, 2)
+    meshes, then three train steps of phase 6's batch on (2, 1), with step
+    0's loss and gradient."""
+    import torch
+
+    from sexy_raytracer_tpu_torch.diff.inverse import (
+        make_optimizer,
+        make_train_step,
+    )
+    from sexy_raytracer_tpu_torch.diff.params import extract_params
+    from sexy_raytracer_tpu_torch.parallel import (
+        make_mesh,
+        render_sharded,
+        shard_rays,
+    )
+    from sexy_raytracer_tpu_torch.parallel.mesh import mesh_device
+    from sexy_raytracer_tpu_torch.render.integrator import (
+        scene_no_emissive_tris,
+    )
+    from sexy_raytracer_tpu_torch.tools.histogram_split import (
+        TRAIN_SPB,
+        run_steps,
+        train_setup,
+    )
+    from sexy_raytracer_tpu_torch.utils import rng
+
+    meshes = {shape: make_mesh(*shape, device_type=device_type)
+              for shape in ((2, 1), (1, 2))}
+    dev = mesh_device(meshes[(2, 1)])
+    scene, cfg, camera, ids, tgt, _ = train_setup(dev)
+    out = {"frames": {}, "frame_s": {}}
+    for shape, mesh in meshes.items():
+        t0 = time.perf_counter()
+        out["frames"][shape] = render_sharded(scene, cfg, mesh)
+        torch.cuda.synchronize()
+        out["frame_s"][shape] = time.perf_counter() - t0
+    mesh = meshes[(2, 1)]
+    step = make_train_step(cfg, make_optimizer(extract_params(scene), 1e-3),
+                           spb=TRAIN_SPB,
+                           last_bounce_vis=scene_no_emissive_tris(scene),
+                           mesh=mesh)
+    state = step.init(extract_params(scene))
+    ids, tgt = shard_rays(ids, mesh), shard_rays(tgt, mesh)
+    loss0, grads0 = step.value_and_grad(state.params, scene, camera, ids,
+                                        tgt, rng.key(0, dev))
+    state, losses, step_s = run_steps(step, state, scene, camera, ids, tgt,
+                                      MESH_STEPS, 0, dev)
+    out.update(losses=[float(x) for x in losses], step_s=step_s,
+               params={k: v.cpu() for k, v in state.params.items()},
+               loss0=float(loss0),
+               grads0={k: g.double().cpu() for k, g in grads0.items()})
+    return out
+
+
+def gloo_phase(torch, frame_img, train_ref, smi):
+    """Phase 11b: two ranks on this one card over gloo (NCCL refuses two
+    ranks on one GPU): the (2, 1) frame within the trace parity budget of
+    11a's, the (1, 2) frame within JAX's sharded tolerance; three steps on
+    (2, 1) bit-identical across the ranks, their losses within relative
+    1e-5 of 11a's steps without a mesh, step 0's gradient within
+    bench.py:192's gate."""
+    from sexy_raytracer_tpu_torch.parallel import spawn
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks = spawn(_two_ranks_on_one_card, 2, "gloo", "cuda", "cuda",
+                  timeout=600)
+    phase_s = time.perf_counter() - t0
+    for shape in ((2, 1), (1, 2)):
+        a, b = (r["frames"][shape] for r in ranks)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"the ranks' {shape} frames differ")
+        if shape == (2, 1):
+            close = np.isclose(a, frame_img, atol=2e-5, rtol=1e-5).all(-1)
+            out = np.argwhere(~close)
+            text = (f"{len(out)} of {close.size} pixels outside atol 2e-5 "
+                    f"rtol 1e-5 (budget 0.5%): {out[:20].tolist()}")
+            ok = close.mean() >= 0.995
+        else:
+            close = np.isclose(a, frame_img, atol=2e-5, rtol=1e-4)
+            text = (f"{int((~close).sum())} values outside atol 2e-5 rtol "
+                    "1e-4")
+            ok = close.all()
+        log(f"sharded frame on a {shape} mesh (2 gloo ranks, one card): "
+            f"{int((a != frame_img).any(-1).sum())} pixels not bit-equal to "
+            f"11a's; {text}; max abs diff "
+            f"{float(np.abs(a - frame_img).max()):.3g}")
+        if not ok:
+            raise AssertionError(f"the {shape} frame is outside its tolerance")
+    r0, r1 = ranks
+    same = r0["losses"] == r1["losses"] and all(
+        torch.equal(r0["params"][k], r1["params"][k]) for k in r0["params"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                               train_ref["losses"])]
+    rel0 = abs(r0["loss0"] - train_ref["loss0"]) / abs(train_ref["loss0"])
+    rel_g = {k: float((r0["grads0"][k] - g).abs().max())
+             / max(float(g.abs().max()), 1e-12)
+             for k, g in train_ref["grads0"].items()}
+    log(f"sharded train steps on a (2, 1) mesh (2 gloo ranks, one card): "
+        f"losses {r0['losses']}, the same on both ranks with bit-identical "
+        f"parameters: {same}; relative to one rank's steps on the same "
+        f"batch {[f'{x:.2e}' for x in rel]}; step 0 loss rel {rel0:.2e}, rel "
+        f"grad " + ", ".join(f"{k} {v:.2e}" for k, v in rel_g.items()))
+    if not same or max(rel) > 1e-5 or rel0 > 1e-3 \
+            or max(rel_g.values()) > 1e-2:
+        raise AssertionError("the two ranks' steps are not bit-identical or "
+                             "not within tolerance of one rank's")
+    log(f"2 gloo ranks on one card (they share it: no scaling figure): "
+        f"frames (2, 1) "
+        + " / ".join(f"{r['frame_s'][(2, 1)]:.3f}" for r in ranks)
+        + " s, (1, 2) "
+        + " / ".join(f"{r['frame_s'][(1, 2)]:.3f}" for r in ranks)
+        + f" s (first frames of each process); step "
+        + " / ".join(f"{r['step_s'] * 1e3:.3f}" for r in ranks)
+        + f" ms (mean of {MESH_STEPS}, host clock); phase {phase_s:.1f} s "
+          f"with the spawn; {smi}")
+
+
+def graft_phase(torch, dev):
+    """Phase 11c: ``graft_entry.entry()``'s fn on the card, and
+    ``dryrun_multichip(1)`` over NCCL in a subprocess."""
+    from sexy_raytracer_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(out).all())
+    log(f"graft_entry.entry(): fn(*example_args) -> {tuple(out.shape)} "
+        f"{out.dtype} on {out.device}, finite: {finite}, mean "
+        f"{float(out.mean()):.4f}")
+    if tuple(out.shape) != (2048, 3) or not finite \
+            or out.device.type != "cuda":
+        raise AssertionError("entry()'s fn failed")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "sexy_raytracer_tpu_torch.graft_entry",
+         "dryrun", "1"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    line = [x for x in r.stdout.splitlines()
+            if x.startswith("dryrun_multichip(1): ok")]
+    log(f"graft_entry dryrun 1 (NCCL): exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s; {line}")
+    if r.returncode != 0 or not line:
+        raise AssertionError(f"dryrun_multichip(1) failed:\n{r.stdout}\n"
+                             f"{r.stderr[-4000:]}")
 
 
 def main(argv=None) -> int:
@@ -1628,7 +1959,8 @@ def main(argv=None) -> int:
     seconds_again = time.perf_counter() - t0
     if not np.isfinite(accum).all():
         raise AssertionError("non-finite radiance in the frame")
-    again = color.to_uint8(color.resolve(accum, spp))
+    frame_float = color.resolve(accum, spp)
+    again = color.to_uint8(frame_float)
     if not np.array_equal(again, img):
         raise AssertionError("a second frame differs from the first")
     if img.shape != (H, W, 3) or img.std() < 5.0:
@@ -2320,8 +2652,9 @@ def main(argv=None) -> int:
     log(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
     # ---- 9. inverse rendering on the card --------------------------------
-    counts = inverse_phase(torch, dev, scene, cfg, relief, train_per_step,
-                           step_s, reset_counts, read_counts, smi)
+    counts, inverse_setup = inverse_phase(
+        torch, dev, scene, cfg, relief, train_per_step, step_s, reset_counts,
+        read_counts, smi)
     for name, c in kernel_checks.items():
         records[name]["launches_by_path"]["inverse"] = counts[c[3].symbol]
 
@@ -2342,6 +2675,20 @@ def main(argv=None) -> int:
             counts_c[c[3].symbol]
     for name, t in timings.items():
         records[name]["shirley"] = t
+
+    # ---- 11. the mesh paths: parallel/, make_train_step(mesh=), graft_entry
+    frame_n, step_n, frame11, train_ref = mesh_phase(
+        torch, dev, scene, cfg, camera, frame_float, seconds, train_ids,
+        train_tgt, step_s, inverse_setup, train_per_step, n_chunks,
+        reset_counts, read_counts, smi)
+    for name, c in kernel_checks.items():
+        records[name]["launches_by_path"]["sharded_frame"] = \
+            frame_n[c[3].symbol]
+        records[name]["launches_by_path"]["sharded_step"] = \
+            step_n[c[3].symbol]
+    gloo_phase(torch, frame11, train_ref, smi)
+    graft_phase(torch, dev)
+    del frame11, train_ref
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile

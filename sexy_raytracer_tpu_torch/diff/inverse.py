@@ -11,10 +11,14 @@ region of interest, per-step keys from ``rng.split`` or one common key
 (``crn_key``), a Polyak average of the parameters, and an optional
 reparameterisation (``init_params`` / ``param_transform``).
 
-One device, no mesh: the JAX step's shard_map and gradient all-reduce
-(inverse.py:243-279) wait for the port of ``parallel/``, so the whole
-batch is one wavefront and ``spp_total = spb``, as JAX's on a one-device
-mesh; ``inverse_render`` has no ``mesh`` argument until then.
+Without a mesh the step runs on the device of its tensors, the whole
+batch one wavefront with ``spp_total = spb``. With a ("rays", "samples")
+mesh (``parallel/mesh.py``; JAX's shard_map, inverse.py:193-300) every
+rank traces its ``shard_rays`` slice of the pixels at sample ids from
+``sample_shard * spb``, with ``spp_total = spb * n_sample_shards``; the
+loss and the gradients are averaged over the whole mesh by all-reduces,
+and Adam then runs identically on every rank. ``inverse_render(mesh=)``
+draws the same tiles and keys on every rank and hands each its slice.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sexy_raytracer_tpu_torch.diff.params import (
     DEFAULT_TRAINABLE,
@@ -30,6 +35,14 @@ from sexy_raytracer_tpu_torch.diff.params import (
     merge_params,
 )
 from sexy_raytracer_tpu_torch.models.scene import tensors_from_numpy
+from sexy_raytracer_tpu_torch.parallel.mesh import (
+    RAY_AXIS,
+    SAMPLE_AXIS,
+    axis_size,
+    mesh_device,
+    replicate_scene,
+    shard_rays,
+)
 from sexy_raytracer_tpu_torch.render.camera import Camera
 from sexy_raytracer_tpu_torch.render.integrator import scene_no_emissive_tris
 from sexy_raytracer_tpu_torch.render.renderer import render_pixels
@@ -128,7 +141,8 @@ def sample_tile_ids(rng_np, width, height, n_pixels, tile_w=16, tile_h=8,
 def make_train_step(config: RenderConfig, optimizer, spb: int = 4,
                     method: str = "auto", grad_masks=None,
                     loss_type: str = "mse", huber_delta: float = 0.1,
-                    param_transform=None, last_bounce_vis: bool = False):
+                    param_transform=None, last_bounce_vis: bool = False, *,
+                    mesh=None):
     """Build a train step on the device of the tensors it is given.
 
     Returns ``step(state, scene, camera, pixel_ids, target_pixels, key)
@@ -136,35 +150,60 @@ def make_train_step(config: RenderConfig, optimizer, spb: int = 4,
     broadcastable 0/1 tensor; masked elements get a zero gradient.
     ``param_transform``: optional differentiable map from the optimised
     params to the scene fields merged into the scene. The step has
-    ``.init(params)`` (a TrainState of copied params) and ``.params_of``.
+    ``.init(params)`` (a TrainState of copied params), ``.params_of`` and
+    ``.value_and_grad(params, scene, camera, pixel_ids, target_pixels,
+    key) -> (loss, grads)``, the masked gradient the update takes.
+
+    ``mesh``: a ("rays", "samples") mesh (``parallel.make_mesh``). Every
+    rank then calls the step with its ``shard_rays`` slice of the pixel
+    ids and targets, and the same state, scene, camera and key; it traces
+    sample ids from ``sample_shard * spb`` with ``spp_total = spb *
+    n_sample_shards``, and the loss and gradients are the means over the
+    whole mesh, so every rank takes the same update.
     """
+    n_sample_shards = 1 if mesh is None else axis_size(mesh, SAMPLE_AXIS)
     kwargs = dict(
         width=config.width, height=config.height, spb=spb,
-        # every traced sample counts: one device traces spb samples
-        spp_total=spb, max_bounce=config.max_bounce, method=method,
-        loss_type=loss_type, huber_delta=huber_delta,
+        # every traced sample counts (inverse.py:228-234): masking sample
+        # ids past the config's spp would darken the estimate whenever
+        # spb * n_sample_shards exceeds it
+        spp_total=spb * n_sample_shards, max_bounce=config.max_bounce,
+        method=method, loss_type=loss_type, huber_delta=huber_delta,
         last_bounce_vis=last_bounce_vis,
     )
 
-    def step(state, scene, camera, pixel_ids, target_pixels, key):
+    def value_and_grad(params, scene, camera, pixel_ids, target_pixels,
+                       key):
         params = {k: v.detach().requires_grad_(True)
-                  for k, v in state.params.items()}
+                  for k, v in params.items()}
         fields = param_transform(params) if param_transform else params
         background = torch.tensor(config.background, dtype=torch.float32,
                                   device=pixel_ids.device)
-        loss = _loss_fn(fields, scene, camera, pixel_ids, target_pixels, 0,
-                        key, background, **kwargs)
+        sample_start = 0 if mesh is None \
+            else mesh.get_local_rank(SAMPLE_AXIS) * spb
+        loss = _loss_fn(fields, scene, camera, pixel_ids, target_pixels,
+                        sample_start, key, background, **kwargs)
         names = list(params)
         got = torch.autograd.grad(loss, [params[k] for k in names],
                                   allow_unused=True)
+        # zero-filled before the reduction: every rank reduces the same
+        # buffers
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(names, got)}
+        loss = loss.detach()
+        if mesh is not None:
+            loss, grads = _mesh_mean(loss, grads, mesh)
         for k, mask in (grad_masks or {}).items():
             grads[k] = grads[k] * torch.as_tensor(
                 mask, dtype=grads[k].dtype, device=grads[k].device)
+        return loss, grads
+
+    def step(state, scene, camera, pixel_ids, target_pixels, key):
+        loss, grads = value_and_grad(state.params, scene, camera, pixel_ids,
+                                     target_pixels, key)
         updates, opt_state = optimizer.update(grads, state.opt_state)
-        new = {k: state.params[k] + updates[k] for k in names}
-        return TrainState(new, opt_state, state.step + 1), loss.detach()
+        new = {k: state.params[k] + updates[k] for k in grads}
+        return TrainState(new, opt_state, state.step + 1), loss
 
     def init(params):
         params = {k: v.detach().clone() for k, v in params.items()}
@@ -175,7 +214,26 @@ def make_train_step(config: RenderConfig, optimizer, spb: int = 4,
 
     step.init = init
     step.params_of = params_of
+    step.value_and_grad = value_and_grad
     return step
+
+
+def _mesh_mean(loss, grads, mesh):
+    """The loss and gradients averaged over every rank of the mesh (JAX's
+    pmean over "rays", then "samples", inverse.py:261-264): one flat
+    buffer, summed over each axis, divided by the number of ranks."""
+    names = list(grads)
+    flat = torch.cat([grads[k].reshape(-1) for k in names]
+                     + [loss.reshape(1)])
+    for axis in (RAY_AXIS, SAMPLE_AXIS):
+        dist.all_reduce(flat, group=mesh.get_group(axis))
+    flat = flat / (axis_size(mesh, RAY_AXIS) * axis_size(mesh, SAMPLE_AXIS))
+    out, at = {}, 0
+    for k in names:
+        n = grads[k].numel()
+        out[k] = flat[at:at + n].view_as(grads[k])
+        at += n
+    return flat[at], out
 
 
 class AdamState(NamedTuple):
@@ -252,7 +310,8 @@ def inverse_render(scene, target_image, config: RenderConfig,
                    log_every: int = 25, progress: bool = True,
                    param_ema: float = 0.98, grad_masks=None, roi=None,
                    loss_type: str = "mse", huber_delta: float = 0.1,
-                   init_params=None, param_transform=None, crn_key=None):
+                   init_params=None, param_transform=None, crn_key=None,
+                   mesh=None):
     """Optimise scene params against ``target_image`` ([H, W, 3], 0..1;
     linear radiance for ``tile_linear``) on the scene's device
     (inverse.py:365-485) -> ``(optimised scene, [loss per step])``.
@@ -275,7 +334,20 @@ def inverse_render(scene, target_image, config: RenderConfig,
 
     Losses stay on the device and are read in one transfer at the end (and
     at each ``log_every`` print when ``progress``).
+
+    ``mesh``: a ("rays", "samples") mesh (``parallel.make_mesh``); every
+    rank calls ``inverse_render`` with the same arguments. The scene goes
+    to each rank's device, ``pixels_per_step`` is rounded down to a
+    multiple of the ray shards (inverse.py:451-454), every rank draws the
+    same tiles and keys and traces its ``shard_rays`` slice of them, and
+    every rank returns the same scene and losses (rank 0 prints them).
     """
+    if mesh is not None:
+        scene = replicate_scene(scene, mesh)
+        if camera is not None:
+            camera = camera.to(mesh_device(mesh))
+        if crn_key is not None:
+            crn_key = crn_key.to(mesh_device(mesh))
     dev = scene.device
     trainable = tuple(trainable or DEFAULT_TRAINABLE)
     trainable = tuple(n for n in trainable if getattr(scene, n).numel() > 0)
@@ -291,14 +363,17 @@ def inverse_render(scene, target_image, config: RenderConfig,
         config, optimizer, spb=spb, method=method, grad_masks=grad_masks,
         loss_type=loss_type, huber_delta=huber_delta,
         param_transform=param_transform,
-        last_bounce_vis=scene_no_emissive_tris(scene),
+        last_bounce_vis=scene_no_emissive_tris(scene), mesh=mesh,
     )
     state = step.init(params)
 
     W, H = config.width, config.height
     target_flat = torch.as_tensor(target_image, dtype=torch.float32,
                                   device=dev).reshape(H * W, 3)
-    pixels_per_step = max(1, pixels_per_step)
+    n_ray_shards = 1 if mesh is None else axis_size(mesh, RAY_AXIS)
+    pixels_per_step = max(n_ray_shards,
+                          pixels_per_step // n_ray_shards * n_ray_shards)
+    progress = progress and (mesh is None or dist.get_rank() == 0)
 
     key = rng.key(seed, device=dev)
     rng_np = np.random.default_rng(seed)
@@ -306,7 +381,8 @@ def inverse_render(scene, target_image, config: RenderConfig,
     ema = None
     for i in range(n_steps):
         ids = sample_tile_ids(rng_np, W, H, pixels_per_step, roi=roi)
-        ids_dev = torch.from_numpy(ids).to(dev)
+        ids_dev = torch.from_numpy(ids).to(dev) if mesh is None \
+            else shard_rays(ids, mesh)
         tgt = target_flat[ids_dev]
         if crn_key is not None:
             sub = crn_key

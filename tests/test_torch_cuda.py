@@ -876,3 +876,33 @@ def test_backward_kernels_on_the_shirley_field(dev):
     hit = sf[26] > 0.5
     assert bool((hit & (si[0] == 2)).any())
     assert bool((hit & (si[0] == 1) & (sf[tfused.SF_GF + 6] > 0)).any())
+
+
+def test_sharded_render_on_one_nccl_rank(dev, tmp_path):
+    """``render_sharded`` on a (1, 1) mesh over NCCL: the float image of
+    ``render``, bit for bit (the stand-in at 64x32, 8 spp; the same chunk,
+    spb, pixel order and rounds with one shard)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from sexy_raytracer_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        render_sharded,
+    )
+    from sexy_raytracer_tpu_torch.parallel.mesh import free_port
+    from sexy_raytracer_tpu_torch.render.renderer import render
+
+    scene, cfg = presets.flagship_standin(n=39, spp=8, height=32,
+                                          data_dir=str(tmp_path), device=dev)
+    cfg = dataclasses.replace(cfg, width=64)
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        got = render_sharded(scene, cfg, make_mesh(1, 1))
+    finally:
+        dist.destroy_process_group()
+    want = render(scene, cfg)
+    assert got.shape == (32, 64, 3) and float(got.std()) > 0.0
+    np.testing.assert_array_equal(got, want)

@@ -104,3 +104,19 @@ def test_cli_runs_without_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert (tmp_path / "x.png").exists()
+
+
+@pytest.mark.parametrize("path", [
+    "sexy_raytracer_tpu_torch/parallel/__init__.py",
+    "sexy_raytracer_tpu_torch/parallel/mesh.py",
+    "sexy_raytracer_tpu_torch/parallel/render.py",
+    "sexy_raytracer_tpu_torch/graft_entry.py",
+    "tests/torch_parallel_ranks.py"])
+def test_mesh_modules_import_no_jax(path):
+    """The mesh modules and the graft entry points are in the scan and
+    import none of it; nor do the tests' rank bodies, so that a spawned
+    rank starts without JAX."""
+    path = REPO / path
+    assert path.exists()
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
