@@ -195,6 +195,30 @@ nonzero without a result line:
     rank on the card, its default) in a subprocess, exiting 0 with its
     line.
 
+12. the root tools' counterparts (``sexy_raytracer_tpu_torch/tools/``),
+    each through its own functions, counted, with its artifacts in a
+    temporary directory:
+    12a. ``run_inverse_experiment`` phases 1, 1b and 1c on the 240p
+    stand-in at ``TOOL_STEPS`` steps a stage and ``TOOL_SIL_STEPS``
+    silhouette steps: per step phase 9's counts, plus the 240p x 128-spp
+    target and re-renders (frame counts), one trace of the edge rays a
+    silhouette step; finite losses, the exact objective falling in
+    phases 1 and 1b, the iron sphere's centre moving towards the truth;
+    12b. ``run_flagship_render``'s command line at 720p, ``TOOL_SPP`` spp,
+    4 a batch (frame counts, the report's keys, its checkpoint removed
+    once the frame is whole), then a render interrupted
+    after one chunk and resumed from its checkpoint, bit-equal to the
+    uninterrupted one, and within the trace parity budget of phase 4's
+    frame;
+    12c. ``run_scaling_curve``'s one-rank NCCL point in a subprocess
+    (bruteforce find: kernels 3 and 4 only), its chunk bit-equal to the
+    same ``render_pixels`` call here;
+    12d. ``check_find_referee`` on 131,072 random rays: no kernel-vs-
+    bruteforce mismatch outside the near-tie rule, each adjudicated in
+    float64; kernel 1 once, then 7 calls a timed mode;
+    12e. ``diag_r5`` at 131,072 rays: its launches, compaction parity 0 on
+    each bounce wavefront; the phase's seconds.
+
 The last three lines are the kernels' JSON record, nvidia-smi's
 "name, power.limit" line, and ``{"ok": true, "device": {...}}``.
 """
@@ -1342,6 +1366,252 @@ def graft_phase(torch, dev):
     if r.returncode != 0 or not line:
         raise AssertionError(f"dryrun_multichip(1) failed:\n{r.stdout}\n"
                              f"{r.stderr[-4000:]}")
+
+
+# phase 12: the root tools' counterparts (sexy_raytracer_tpu_torch/tools/)
+# at shortened length: steps of each inverse stage, silhouette steps, and
+# the flagship render's spp; the referee and the diagnostics at full size
+TOOL_STEPS, TOOL_SIL_STEPS, TOOL_SPP = 10, 20, 8
+
+
+def counts_of(kernels, per_call, calls=1):
+    """The launch counts of ``calls`` runs of ``per_call`` ({symbol: n}),
+    every other kernel 0."""
+    expect = {k.symbol: 0 for k in kernels}
+    for k, v in per_call.items():
+        expect[k] += calls * v
+    return expect
+
+
+def add_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def tools_phase(torch, dev, train_per_step, frame_float, reset_counts,
+                read_counts, smi):
+    """Phase 12: each ported tool through its own functions on the card,
+    counted: the inverse experiment's phases 1, 1b and 1c (``TOOL_STEPS``
+    steps a stage, ``TOOL_SIL_STEPS`` silhouette steps; finite losses, the
+    exact objective falling in phases 1 and 1b, the iron sphere moving
+    towards the truth); the flagship render's command line at 720p,
+    ``TOOL_SPP`` spp, interrupted after a chunk and resumed bit-equal,
+    within the trace parity budget of phase 4's frame; the scaling
+    curve's one-rank NCCL point in a subprocess, its chunk bit-equal to
+    ``render_pixels`` here; the referee (no kernel-vs-bruteforce mismatch
+    outside the near-tie rule) and the diagnostics (compaction parity 0)
+    at 131,072 rays. Returns the launch counts by tool."""
+    from sexy_raytracer_tpu_torch.models import presets
+    from sexy_raytracer_tpu_torch.ops import _cuda
+    from sexy_raytracer_tpu_torch.render import renderer
+    from sexy_raytracer_tpu_torch.render.camera import Camera
+    from sexy_raytracer_tpu_torch.tools import check_find_referee as referee
+    from sexy_raytracer_tpu_torch.tools import diag_r5
+    from sexy_raytracer_tpu_torch.tools import run_flagship_render as flagship
+    from sexy_raytracer_tpu_torch.tools import run_inverse_experiment as inv
+    from sexy_raytracer_tpu_torch.tools import run_scaling_curve as scaling
+    from sexy_raytracer_tpu_torch.utils import color, rng
+
+    t12 = time.perf_counter()
+    K = _cuda.KERNELS
+    by_tool = {}
+    # per step: phase 6's counts, kernel 5 at bounces 1-3 (phase 9)
+    inv_step = dict(train_per_step)
+    inv_step["srt_hitrec_bwd"] -= 1
+    # a trace without the last-bounce shortcut: find, hit record, shade
+    # at each of the 4 bounces
+    trace4 = {"srt_find_closest": 4, "srt_hitrec": 4, "srt_shade": 4}
+
+    def frame_calls(cfg):
+        return frame_counts(K, frame_plan(cfg)[0])
+
+    arts = inv.ART, flagship.ART
+    with tempfile.TemporaryDirectory() as art:
+        # 12a. the inverse experiment
+        inv.ART = art
+        _, cfg240, _ = presets.flagship(height=inv.HEIGHT,
+                                        spp=inv.TARGET_SPP, device=dev)
+        frame240 = frame_calls(cfg240)
+        report, t0 = {}, time.perf_counter()
+        reset_counts()
+        crn = inv.phase1_crn(report, dev, n_steps=TOOL_STEPS)
+        got = inv_counts = read_counts()
+        # the target, the recovered and the perturbed re-render
+        want = add_counts(frame240, frame240, frame240,
+                          counts_of(K, inv_step, TOOL_STEPS))
+        log(f"tools: inverse phase 1 (CRN, {TOOL_STEPS} steps) launches "
+            f"{got} (expected {want}: 3 frames of 240p x "
+            f"{inv.TARGET_SPP} spp, phase 9's counts a step)")
+        if got != want:
+            raise AssertionError(f"launch counts {got} != {want}")
+        stages = {"0": {}, "0b": {}, "A": {}, "B": {}}
+        reset_counts()
+        nocrn = inv.phase1b_stochastic(
+            report, dev, stage_kw={s: dict(n_steps=TOOL_STEPS)
+                                   for s in stages})
+        got = read_counts()
+        want = add_counts(frame240, counts_of(K, inv_step, 4 * TOOL_STEPS))
+        inv_counts = add_counts(inv_counts, got)
+        log(f"tools: inverse phase 1b (4 stages of {TOOL_STEPS} steps) "
+            f"launches {got} (expected {want}: the recovered re-render, "
+            f"phase 9's counts a step)")
+        if got != want:
+            raise AssertionError(f"launch counts {got} != {want}")
+        reset_counts()
+        inv.phase1c_silhouette(report, dev, n_steps=TOOL_SIL_STEPS)
+        got = read_counts()
+        want = counts_of(K, trace4, TOOL_SIL_STEPS)
+        log(f"tools: inverse phase 1c ({TOOL_SIL_STEPS} silhouette steps, "
+            f"n_edge 512) launches {got} (expected {want}: one trace of "
+            f"the edge rays a step)")
+        if got != want:
+            raise AssertionError(f"launch counts {got} != {want}")
+        by_tool["inverse_tool"] = add_counts(inv_counts, got)
+        for s, part in zip(stages, np.split(np.asarray(nocrn), 4)):
+            stages[s] = [float(x) for x in part]
+        # each step draws other tiles, so a short run's per-step losses
+        # need not fall; the exact objective (deterministic re-renders
+        # against the target in the ROI) must
+        log(f"tools: inverse losses, CRN {crn[0]:.6g} -> {crn[-1]:.6g}; "
+            "1b stages "
+            + ", ".join(f"{s} {v[0]:.6g} -> {v[-1]:.6g}"
+                        for s, v in stages.items())
+            + f"; exact objective, perturbed / recovered: CRN "
+              f"{report['crn_exact_mse_ratio']}, no CRN "
+              f"{report['nocrn_exact_mse_ratio']}; silhouette centre error "
+              f"{report['silhouette_center_err_start']:.4f} -> "
+              f"{report['silhouette_center_err_final']:.4f}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        finite = np.isfinite(crn).all() and np.isfinite(nocrn).all()
+        if not finite or not report["crn_exact_mse_ratio"] > 1.0 \
+                or not report["nocrn_exact_mse_ratio"] > 1.0 \
+                or not report["silhouette_center_err_final"] \
+                < report["silhouette_center_err_start"]:
+            raise AssertionError("the short inverse stages failed")
+
+        # 12b. the flagship render: its command line, then a render
+        # interrupted after one chunk and resumed from its checkpoint
+        flagship.ART = art
+        _, cfg720, _ = presets.flagship(height=flagship.HEIGHT, spp=TOOL_SPP,
+                                        device=dev)
+        cfg720 = dataclasses.replace(cfg720, samples_per_batch=4)
+        calls, chunk = frame_plan(cfg720)
+        t0 = time.perf_counter()
+        reset_counts()
+        rc = flagship.main(["--spp", str(TOOL_SPP)])
+        got = read_counts()
+        want = frame_counts(K, calls)
+        with open(os.path.join(art, "report.json")) as f:
+            keys = sorted(json.load(f))
+        log(f"tools: flagship command line ({TOOL_SPP} spp, 4 a batch, "
+            f"{calls} render_pixels calls) exit {rc}, launches {got} "
+            f"(expected {want}); report keys {keys}")
+        left = os.path.exists(flagship.checkpoint_path(
+            presets.flagship_name(), TOOL_SPP))
+        if rc != 0 or got != want or left or keys != sorted(
+                ["scene", "device", "spp", "method", "wall_s",
+                 "mpaths_per_s"]):
+            raise AssertionError("the flagship command line failed "
+                                 f"(checkpoint left: {left})")
+        full, _, _ = flagship.render(TOOL_SPP, device=dev)
+
+        class Interrupt(Exception):
+            pass
+
+        per_chunk = calls // -(-cfg720.width * cfg720.height // chunk)
+        real, seen = renderer.render_pixels, [0]
+
+        def cut(*a, **kw):
+            seen[0] += 1
+            if seen[0] > per_chunk:
+                raise Interrupt()
+            return real(*a, **kw)
+
+        ckpt = os.path.join(art, "interrupted.npz")
+        renderer.render_pixels = cut
+        try:
+            flagship.render(TOOL_SPP, device=dev, checkpoint=ckpt)
+            raise AssertionError("the render was not interrupted")
+        except Interrupt:
+            pass
+        finally:
+            renderer.render_pixels = real
+        resumed, _, _ = flagship.render(TOOL_SPP, device=dev,
+                                        checkpoint=ckpt)
+        img = color.resolve(full, TOOL_SPP)
+        close = np.isclose(img, frame_float, atol=2e-5, rtol=1e-5).all(-1)
+        log(f"tools: flagship render interrupted after {per_chunk} "
+            f"render_pixels calls (one chunk) and resumed: bit-equal to the "
+            f"uninterrupted render: {np.array_equal(resumed, full)}; against "
+            f"phase 4's frame {int((~close).sum())} of {close.size} pixels "
+            f"outside atol 2e-5 rtol 1e-5 (budget 0.5%), max abs diff "
+            f"{float(np.abs(img - frame_float).max()):.3g}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not np.array_equal(resumed, full) or close.mean() < 0.995:
+            raise AssertionError("the flagship render's resume or parity "
+                                 "failed")
+        by_tool["flagship_tool"] = got
+    inv.ART, flagship.ART = arts
+
+    # 12c. the scaling curve's one-rank NCCL point, in a subprocess
+    t0 = time.perf_counter()
+    row, chunk_rad = scaling.measure(1, "cuda")
+    scene240, cfg240, _ = presets.flagship(height=scaling.HEIGHT,
+                                           spp=scaling.SPP_TOTAL, device=dev)
+    ids = torch.from_numpy(renderer.tile_pixel_order(
+        cfg240.width, cfg240.height)[:scaling.PIXELS]).to(dev)
+    here = renderer.render_pixels(
+        scene240, Camera.from_config(cfg240.camera, cfg240.aspect,
+                                     device=dev),
+        ids, 2 * scaling.REPS, rng.key(0, dev),
+        torch.tensor(cfg240.background, device=dev), width=cfg240.width,
+        height=cfg240.height, spb=scaling.SPB, spp_total=scaling.SPP_TOTAL,
+        max_bounce=cfg240.max_bounce, method="bruteforce").cpu().numpy()
+    launched = {k: v for k, v in row["launches_per_chunk"].items() if v}
+    log(f"tools: scaling curve, one NCCL rank in a subprocess: "
+        f"{row['seconds_per_chunk'] * 1e3:.3f} ms a chunk, "
+        f"{row['mrays_per_s']:.3f} Mrays/s ({scaling.PIXELS} pixels x spb "
+        f"{scaling.SPB} x 4 bounces, bruteforce find); launches a chunk "
+        f"{launched} (the find is plain PyTorch: the hit record and shade "
+        f"at each bounce, no last-bounce shortcut); its chunk bit-equal to "
+        f"render_pixels here: {np.array_equal(chunk_rad, here)}; "
+        f"{time.perf_counter() - t0:.1f} s with the spawn ({smi})")
+    if launched != {"srt_hitrec": 4, "srt_shade": 4} \
+            or not np.array_equal(chunk_rad, here):
+        raise AssertionError("the scaling curve's one-rank point failed")
+
+    # 12d. the referee: kernel 1 once, then 7 calls a timed mode
+    t0 = time.perf_counter()
+    reset_counts()
+    res = referee.run(dev)
+    got = read_counts()
+    want = counts_of(K, {"srt_find_closest": 1 + len(referee.MODES) * 7})
+    log(f"tools: referee {json.dumps(res)}; launches {got} (expected "
+        f"{want}); {time.perf_counter() - t0:.1f} s")
+    if got != want or res["outside_tie_rule"] or res["rays"] != referee.R:
+        raise AssertionError("the referee found mismatches outside the "
+                             "near-tie rule")
+    by_tool["referee"] = got
+
+    # 12e. the diagnostics: finds a population, compactions, frame calls
+    t0 = time.perf_counter()
+    reset_counts()
+    res = diag_r5.run(dev)
+    got = read_counts()
+    n_pop, n_bounce = 6, 3
+    finds = (n_bounce + n_pop * (1 + diag_r5.TIMED)
+             + n_bounce * (1 + diag_r5.TIMED + 2))
+    frames = len(diag_r5.FRAME_REGIONS) * (1 + diag_r5.FRAME_TIMED)
+    want = add_counts(counts_of(K, {"srt_find_closest": finds}),
+                      counts_of(K, trace4, frames))
+    parity = {k: v for k, v in res.items() if k.startswith("compact_parity")}
+    log(f"tools: diag {json.dumps(res)}; launches {got} (expected {want}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if got != want or len(parity) != n_bounce or any(parity.values()):
+        raise AssertionError("the diagnostics' launches or compaction "
+                             "parity failed")
+    by_tool["diag"] = got
+    log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    return by_tool
 
 
 def main(argv=None) -> int:
@@ -2689,6 +2959,13 @@ def main(argv=None) -> int:
     gloo_phase(torch, frame11, train_ref, smi)
     graft_phase(torch, dev)
     del frame11, train_ref
+
+    # ---- 12. the root tools' counterparts --------------------------------
+    by_tool = tools_phase(torch, dev, train_per_step, frame_float,
+                          reset_counts, read_counts, smi)
+    for name, c in kernel_checks.items():
+        for tool, counts in by_tool.items():
+            records[name]["launches_by_path"][tool] = counts[c[3].symbol]
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile

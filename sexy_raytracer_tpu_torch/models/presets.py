@@ -172,6 +172,26 @@ def flagship_standin(n: int = 39, spp: int = 8, height: int = 720,
     return scene, _flagship_config(height, spp)
 
 
+MASTERCHIEF_ASSET = "masterchief2-separate-xf.gltf"
+
+
+def flagship_name(data_dir: str | None = None) -> str:
+    """``"masterchief"`` when ``data_dir`` (default ``default_data_dir()``)
+    holds its asset, else ``"flagship_standin"``."""
+    path = os.path.join(data_dir or default_data_dir(), MASTERCHIEF_ASSET)
+    return "masterchief" if os.path.exists(path) else "flagship_standin"
+
+
+def flagship(height: int = 720, spp: int = 1000,
+             data_dir: str | None = None, device="cuda"):
+    """The flagship scene the tools run on -> ``(scene, config, name)``:
+    the preset ``flagship_name`` names, at ``height`` and ``spp``."""
+    name = flagship_name(data_dir)
+    preset = masterchief if name == "masterchief" else flagship_standin
+    return (*preset(data_dir=data_dir, spp=spp, height=height,
+                    device=device), name)
+
+
 def _shirley_config(height: int, spp: int) -> RenderConfig:
     """The book's view of the sphere field: 16:9, 4 bounces, aperture
     0.1 focused at 10 (reference main.cpp:92-122)."""
@@ -274,7 +294,7 @@ def cube(data_dir: str | None = None, spp: int = 64, height: int = 480,
 
 def masterchief(data_dir: str | None = None, spp: int = 1000,
                 height: int = 720,
-                asset: str = "masterchief2-separate-xf.gltf",
+                asset: str = MASTERCHIEF_ASSET,
                 root_transform=None, device="cuda"):
     """The reference's randomScene() (main.cpp:54-154): Master Chief mesh +
     checker ground + HDR light + (sentinel-textured) iron PBR sphere +

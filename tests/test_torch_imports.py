@@ -120,3 +120,18 @@ def test_mesh_modules_import_no_jax(path):
     assert path.exists()
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("module", [
+    "tools/run_inverse_experiment.py", "tools/run_flagship_render.py",
+    "tools/run_scaling_curve.py", "tools/check_find_referee.py",
+    "tools/diag_r5.py"])
+def test_ported_root_tools_import_no_jax(module):
+    """The root tools' counterparts are in the scan and import none of it,
+    nor the root ``tools/`` scripts (``tools.*``, ``tputime``), whose
+    helpers they copy."""
+    path = REPO / "sexy_raytracer_tpu_torch" / module
+    assert path.exists()
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN | {"tools", "tputime"}]
+    assert not bad, bad
