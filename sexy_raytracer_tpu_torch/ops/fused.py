@@ -194,7 +194,8 @@ def _vrefract(uv, n, ratio):
 # ---------------------------------------------------------------------------
 
 def hitrec_math(F):
-    """[NHF, *B] f32 -> [NHO, *B] f32 (plain version of the hitrec kernel)."""
+    """[NHF, *B] f32 -> [NHO, *B] f32 (plain version of the hitrec kernel).
+    ``F`` may also be the sequence of its rows."""
     org = (F[0], F[1], F[2])
     dr = (F[3], F[4], F[5])
     time = F[6]
@@ -349,10 +350,24 @@ def hitrec_bwd(hf, g):
 
 def hitrec_vjp_plain(hf, g):
     """Plain version of ``hitrec_bwd``: ``torch.autograd.grad`` of
-    ``hitrec_math`` with cotangent ``g``."""
+    ``hitrec_math`` with cotangent ``g``, the rows read once (``_vjp``)."""
+    return _vjp(hitrec_math, hf, g)
+
+
+def _vjp(math, f, g, *args):
+    """``torch.autograd.grad`` of ``math(rows, *args)`` at the rows of the
+    [N, R] stack ``f``, with cotangent ``g``.
+
+    The rows are taken once, by ``unbind``: one node then stacks their
+    cotangents. Read as ``f[k]``, each row is a select whose backward
+    zero-fills a whole [N, R] cotangent, N of them a call. The math, and
+    so the order of every sum, is the same either way: the values are the
+    select form's, but for zeros that keep their sign of -0.0 where the
+    sum of the selects' zero-filled stacks gave +0.0
+    (``tests/test_torch_fused.py``)."""
     with torch.enable_grad():
-        F = hf.detach().requires_grad_(True)
-        (dF,) = torch.autograd.grad(hitrec_math(F), F, g)
+        F = f.detach().requires_grad_(True)
+        (dF,) = torch.autograd.grad(math(F.unbind(0), *args), F, g)
     return dF
 
 
@@ -362,7 +377,7 @@ def hitrec_vjp_plain(hf, g):
 
 def shade_carry_math(F, I):
     """[NSF, *B] f32, [NSI, *B] i32 -> [NSO, *B] f32 (plain version of the
-    shade kernel)."""
+    shade kernel). ``F`` may also be the sequence of its rows."""
     org = (F[0], F[1], F[2])
     dr = (F[3], F[4], F[5])
     thr = (F[6], F[7], F[8])
@@ -607,11 +622,9 @@ def shade_bwd(sf, si, g):
 
 def shade_vjp_plain(sf, si, g):
     """Plain version of ``shade_bwd``: ``torch.autograd.grad`` of
-    ``shade_carry_math`` with cotangent ``g``."""
-    with torch.enable_grad():
-        F = sf.detach().requires_grad_(True)
-        (dF,) = torch.autograd.grad(shade_carry_math(F, si), F, g)
-    return dF
+    ``shade_carry_math`` with cotangent ``g``, the rows read once
+    (``_vjp``)."""
+    return _vjp(shade_carry_math, sf, g, si)
 
 
 def stack_copy(f, si=None, n_out=NSO):

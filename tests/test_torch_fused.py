@@ -223,6 +223,118 @@ def test_shade_vjp_matches_jax(seed):
     assert (got[65:72] == 0).all() and (want[65:72] == 0).all()
 
 
+def _select_vjp(math, f, g, *args):
+    """The plain VJPs' first form: ``torch.autograd.grad`` through the math
+    applied to the stack itself, so that each row is read as a select."""
+    with torch.enable_grad():
+        F = f.detach().requires_grad_(True)
+        (dF,) = torch.autograd.grad(math(F, *args), F, g)
+    return dF
+
+
+def _random_vjp_call(kernel):
+    """A seeded stack of kernel 5 or 6 with a third of its rays without a
+    hit: on the hit record, lanes whose gathered rows are all zero (the
+    miss and pad lanes' row 0); on the shade, rays with no hit, half of
+    them dead (as tests the carry's pass-through below)."""
+    r = np.random.default_rng(30)
+    no_hit = r.random(R) < 1 / 3
+    if kernel == "hitrec":
+        F = _hf_stack(7)
+        F[7:31, no_hit] = 0.0
+        return (torch.from_numpy(F),
+                torch.from_numpy(_cotangent(31, tfused.NHO)))
+    F, I = _sf_stack(8)
+    F[26, no_hit] = 0.0
+    F[12, no_hit] = (r.random(int(no_hit.sum())) < 0.5).astype(np.float32)
+    return (torch.from_numpy(F), torch.from_numpy(I),
+            torch.from_numpy(_cotangent(32, tfused.NSO)))
+
+
+@pytest.fixture(scope="module")
+def train_step_vjp_calls():
+    """The (stack, cotangent) of every kernel 5 and 6 call in the backward
+    of one train step on tests/test_inverse.py's scene, at the shape of
+    ``tests/test_torch_oracle.py::test_inverse_rendering_converges`` (768
+    pixels at spb 32, 3 bounces: [NHF | NSF, 24,576] stacks), its last
+    bounce full of dead lanes and rays with no hit."""
+    from sexy_raytracer_tpu_torch.diff.inverse import (
+        _loss_fn,
+        sample_tile_ids,
+    )
+    from sexy_raytracer_tpu_torch.diff.params import extract_params
+    from sexy_raytracer_tpu_torch.render.camera import Camera
+    from sexy_raytracer_tpu_torch.utils import rng
+    from sexy_raytracer_tpu_torch.utils.config import CameraConfig
+    from test_torch_inverse_crn import _inverse_scene
+
+    calls = {"hitrec": [], "shade": []}
+
+    def record(name, fn):
+        def run(*args):
+            calls[name].append(tuple(a.clone() for a in args))
+            return fn(*args)
+        return run
+
+    scene = _inverse_scene()
+    cam = Camera.from_config(
+        CameraConfig(eye=(0, 2, 6), look_at=(0, 1, 0), vfov_degrees=45.0,
+                     aperture=0.0, focus_dist=6.0), 48 / 32, device="cpu")
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in extract_params(scene).items()}
+    ids = torch.from_numpy(sample_tile_ids(np.random.default_rng(5), 48, 32,
+                                           768))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfused, "hitrec_bwd", record("hitrec", tfused.hitrec_bwd))
+        mp.setattr(tfused, "shade_bwd", record("shade", tfused.shade_bwd))
+        loss = _loss_fn(params, scene, cam, ids, torch.full((768, 3), 0.5),
+                        0, rng.key(5), torch.zeros(3), width=48, height=32,
+                        spb=32, spp_total=32, max_bounce=3,
+                        method="bruteforce", last_bounce_vis=True)
+        torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    assert [c[0].shape for c in calls["shade"]] == \
+        [(tfused.NSF, 768 * 32)] * 3
+    return calls
+
+
+@pytest.mark.parametrize("kernel", ["hitrec", "shade"])
+@pytest.mark.parametrize("source", ["random", "train_step"])
+def test_plain_vjps_read_rows_once_bit_equal(kernel, source,
+                                             train_step_vjp_calls):
+    """The plain VJPs take the stack's rows once (``unbind``) where their
+    first form read each row as a select of the stack: the same math in
+    the same order, so the cotangents equal the select form's exactly
+    (rtol = atol = 0, NaN where it has NaN). The one difference allowed is
+    the sign of zero: a zero cotangent may be -0.0 where the sum of the
+    selects' zero-filled stacks made it +0.0, and that changes no sum, no
+    histogram and no Adam step downstream. On seeded stacks with rays
+    without a hit, and on every call of a train step's backward."""
+    math, vjp = {"hitrec": (tfused.hitrec_math, tfused.hitrec_vjp_plain),
+                 "shade": (tfused.shade_carry_math,
+                           tfused.shade_vjp_plain)}[kernel]
+    calls = ([_random_vjp_call(kernel)] if source == "random"
+             else train_step_vjp_calls[kernel])
+    assert calls
+    nonzero = False
+    for args in calls:
+        if kernel == "hitrec":
+            (f, g), extra = args, ()
+        else:
+            f, si, g = args
+            extra = (si,)
+        got = vjp(f, *extra, g)
+        want = _select_vjp(math, f, g, *extra)
+        assert got.shape == want.shape == f.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+        nonzero = nonzero or bool(got.any())
+    assert nonzero
+    if source == "train_step" and kernel == "shade":
+        alive = torch.cat([f[12] for f, _, _ in calls])
+        hit = torch.cat([f[26] for f, _, _ in calls])
+        assert (alive == 0).any() and ((alive > 0.5) & (hit == 0)).any()
+
+
 def test_fused_wrappers_differentiate_like_jax_kernels():
     """Gradients through the port's autograd Functions (on CPU tensors:
     the plain VJPs) against JAX's custom VJPs, whose backward runs the

@@ -2,8 +2,11 @@
 loop (tile draws in a region of interest, split keys or a common key, the
 parameter EMA, gradient masks, the loss types). The common-random-numbers
 cases, the reparameterisation, the self-recovery and the EMA's bits are in
-``tests/test_torch_inverse_crn.py``, a file of its own so that a worker
-of ``--dist loadfile`` takes each half.
+``tests/test_torch_inverse_crn.py``: ``--dist loadfile`` hands out whole
+files, so the two halves can run on two workers at once. Neither is sure
+of a worker to itself: pytest-xdist queues the files by their number of
+tests, largest first, and hands a worker its next file once it has at
+most 2 tests pending.
 
 The parity runs use the scene of tests/test_torch_train.py at 32x24 with 2
 bounces (the JAX step compiles in about half the time of 3 bounces, and 2
