@@ -1,0 +1,5 @@
+"""Live rays over the ray slots that the traced frames' finds were
+launched over (kernels 1-6 run every lane of a wavefront, dead or alive),
+counted on the card by the program's ``live_rays`` counter."""
+
+from benchmark.spans import live_ray_pct as read  # noqa: F401

@@ -46,7 +46,7 @@ from sexy_raytracer_tpu_torch.parallel.mesh import (
 from sexy_raytracer_tpu_torch.render.camera import Camera
 from sexy_raytracer_tpu_torch.render.integrator import scene_no_emissive_tris
 from sexy_raytracer_tpu_torch.render.renderer import render_pixels
-from sexy_raytracer_tpu_torch.utils import rng
+from sexy_raytracer_tpu_torch.utils import profiling, rng
 from sexy_raytracer_tpu_torch.utils.config import RenderConfig
 from sexy_raytracer_tpu_torch.utils.mathx import clip
 
@@ -86,7 +86,9 @@ def _loss_fn(params, scene, camera, pixel_ids, target_pixels, sample_start,
         return _huber(r_t - t_t, huber_delta)
     if loss_type == "linear_mse":
         return _huber(rad / spb - target_pixels, huber_delta)
-    resolved = clip(torch.sqrt(clip(rad / spb, 1e-8, None)), 0.0, 0.999)
+    # the clip bounds are uploaded from pageable memory: a wait
+    with profiling.wait("resolve"):
+        resolved = clip(torch.sqrt(clip(rad / spb, 1e-8, None)), 0.0, 0.999)
     err = resolved - target_pixels
     if loss_type == "huber":
         return _huber(err, huber_delta)
@@ -160,6 +162,13 @@ def make_train_step(config: RenderConfig, optimizer, spb: int = 4,
     sample ids from ``sample_shard * spb`` with ``spp_total = spb *
     n_sample_shards``, and the loss and gradients are the means over the
     whole mesh, so every rank takes the same update.
+
+    While a profiler records, a step is the span ``step`` with the
+    children ``step.forward`` (the loss), ``step.backward``
+    (``autograd.grad``) and ``step.adam`` (the update and its addition),
+    and its uploads from pageable memory are ``wait`` sites
+    (``utils/profiling.py``). No span lies inside an autograd Function:
+    their backward runs on autograd's own thread.
     """
     n_sample_shards = 1 if mesh is None else axis_size(mesh, SAMPLE_AXIS)
     kwargs = dict(
@@ -177,15 +186,19 @@ def make_train_step(config: RenderConfig, optimizer, spb: int = 4,
         params = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         fields = param_transform(params) if param_transform else params
-        background = torch.tensor(config.background, dtype=torch.float32,
-                                  device=pixel_ids.device)
+        with profiling.wait("background"):
+            background = torch.tensor(config.background,
+                                      dtype=torch.float32,
+                                      device=pixel_ids.device)
         sample_start = 0 if mesh is None \
             else mesh.get_local_rank(SAMPLE_AXIS) * spb
-        loss = _loss_fn(fields, scene, camera, pixel_ids, target_pixels,
-                        sample_start, key, background, **kwargs)
+        with profiling.span("step.forward"):
+            loss = _loss_fn(fields, scene, camera, pixel_ids, target_pixels,
+                            sample_start, key, background, **kwargs)
         names = list(params)
-        got = torch.autograd.grad(loss, [params[k] for k in names],
-                                  allow_unused=True)
+        with profiling.span("step.backward"):
+            got = torch.autograd.grad(loss, [params[k] for k in names],
+                                      allow_unused=True)
         # zero-filled before the reduction: every rank reduces the same
         # buffers
         grads = {k: torch.zeros_like(params[k]) if g is None else g
@@ -199,10 +212,13 @@ def make_train_step(config: RenderConfig, optimizer, spb: int = 4,
         return loss, grads
 
     def step(state, scene, camera, pixel_ids, target_pixels, key):
-        loss, grads = value_and_grad(state.params, scene, camera, pixel_ids,
-                                     target_pixels, key)
-        updates, opt_state = optimizer.update(grads, state.opt_state)
-        new = {k: state.params[k] + updates[k] for k in grads}
+        with profiling.span("step"):
+            loss, grads = value_and_grad(state.params, scene, camera,
+                                         pixel_ids, target_pixels, key)
+            with profiling.span("step.adam"):
+                updates, opt_state = optimizer.update(grads,
+                                                      state.opt_state)
+                new = {k: state.params[k] + updates[k] for k in grads}
         return TrainState(new, opt_state, state.step + 1), loss
 
     def init(params):

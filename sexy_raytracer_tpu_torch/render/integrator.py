@@ -44,7 +44,7 @@ from sexy_raytracer_tpu_torch.ops.intersect import (
 )
 from sexy_raytracer_tpu_torch.ops.lookup import atlas_lookup, table_lookup
 from sexy_raytracer_tpu_torch.ops.shade import material_packs, shade
-from sexy_raytracer_tpu_torch.utils import rng
+from sexy_raytracer_tpu_torch.utils import profiling, rng
 from sexy_raytracer_tpu_torch.utils.mathx import PI
 
 _BIG = 3.0e38
@@ -56,10 +56,12 @@ def scene_no_emissive_tris(scene) -> bool:
     Gates the last-bounce visibility shortcut: an emissive triangle would
     be misclassified as an occluder there.
     """
-    tm = scene.tri_mat.cpu().numpy()
-    if tm.size == 0:
+    if scene.tri_mat.numel() == 0:
         return True
-    mt = scene.mat_type.cpu().numpy()
+    # read back from the device: a wait, where there are triangles
+    with profiling.wait("emissive_tris"):
+        tm = scene.tri_mat.cpu().numpy()
+        mt = scene.mat_type.cpu().numpy()
     return not bool(np.any(mt[tm] == MAT_LIGHT))
 
 
@@ -131,9 +133,15 @@ def trace_rays_reference(scene, org, dir, time, keys, background,
 def bounce_uniforms(keys, max_bounce: int):
     """Per-bounce draws ``[R, B, 6]``: ``bits(fold_in(k, 100 + b), (6,))``
     as U[0,1) floats, for every ray key and bounce."""
-    b = torch.arange(max_bounce, dtype=torch.int64, device=keys.device)
-    bkeys = rng.fold_in(keys[:, None, :], 100 + b)
-    return rng.uniforms_from_bits(rng.bits(bkeys, 6))
+    with profiling.span("rng", device=keys.is_cuda):
+        b = torch.arange(max_bounce, dtype=torch.int64, device=keys.device)
+        bkeys = rng.fold_in(keys[:, None, :], 100 + b)
+        return rng.uniforms_from_bits(rng.bits(bkeys, 6))
+
+
+def _live(carry):
+    """The live lanes of a carry stack, counted on its device."""
+    return (carry[12] > 0.5).sum()
 
 
 def trace_rays_fused(scene, org, dir, time, keys, background,
@@ -147,7 +155,19 @@ def trace_rays_fused(scene, org, dir, time, keys, background,
     sphere solve plus the any-hit occlusion kernel. Valid only when no
     triangle is emissive (``scene_no_emissive_tris``); it needs a bounce to
     replace, so it is ignored at ``max_bounce == 0``.
+
+    While a profiler records, the call is the span ``trace``, with the
+    children ``trace.packs``, ``trace.bounce`` (``trace.find``,
+    ``trace.shade``) and ``trace.visibility``, and each find adds the
+    wavefront's live rays and its ray count to the counter ``live_rays``.
     """
+    with profiling.span("trace"):
+        return _trace_fused(scene, org, dir, time, keys, background,
+                            max_bounce, method, last_bounce_vis)
+
+
+def _trace_fused(scene, org, dir, time, keys, background, max_bounce,
+                 method, last_bounce_vis):
     R = org.shape[0]
     dev = org.device
     T = scene.tri_v0.shape[0]
@@ -161,23 +181,25 @@ def trace_rays_fused(scene, org, dir, time, keys, background,
     if last_bounce_vis:
         # before any of the wavefront's work is queued: the index costs
         # the host one wait on an almost empty stream
-        emissive = emissive_spheres(scene)
-    if T > 0:
-        tri_pack = torch.cat(
-            [scene.tri_v0, scene.tri_v1, scene.tri_v2,
-             scene.tri_uv0, scene.tri_uv1, scene.tri_uv2,
-             scene.tri_mat.view(f32)[:, None]], dim=1,
-        )  # [T, 16]; the material id rides as raw bits
-    if S > 0:
-        sph_pack = torch.cat(
-            [scene.sph_c0, scene.sph_c1, scene.sph_t0[:, None],
-             scene.sph_t1[:, None], scene.sph_radius[:, None],
-             scene.sph_mat.view(f32)[:, None]], dim=1,
-        )  # [S, 10]
-    mat_f, mat_i = material_packs(scene)
-    mat_all = torch.cat([mat_f, mat_i.view(f32)], dim=1)  # [M, 30 + 9]
-    n_matf = mat_f.shape[1]
-    atlas2d = scene.shade_atlas.reshape(L * H, W, C)
+        with profiling.wait("emissive_spheres"):
+            emissive = emissive_spheres(scene)
+    with profiling.span("trace.packs"):
+        if T > 0:
+            tri_pack = torch.cat(
+                [scene.tri_v0, scene.tri_v1, scene.tri_v2,
+                 scene.tri_uv0, scene.tri_uv1, scene.tri_uv2,
+                 scene.tri_mat.view(f32)[:, None]], dim=1,
+            )  # [T, 16]; the material id rides as raw bits
+        if S > 0:
+            sph_pack = torch.cat(
+                [scene.sph_c0, scene.sph_c1, scene.sph_t0[:, None],
+                 scene.sph_t1[:, None], scene.sph_radius[:, None],
+                 scene.sph_mat.view(f32)[:, None]], dim=1,
+            )  # [S, 10]
+        mat_f, mat_i = material_packs(scene)
+        mat_all = torch.cat([mat_f, mat_i.view(f32)], dim=1)  # [M, 30 + 9]
+        n_matf = mat_f.shape[1]
+        atlas2d = scene.shade_atlas.reshape(L * H, W, C)
 
     # -- per-bounce uniforms for all bounces: [R, B, 6] --
     u = bounce_uniforms(keys, max_bounce)
@@ -274,17 +296,27 @@ def trace_rays_fused(scene, org, dir, time, keys, background,
             carry[0:13], ho[0:12], ho[15][None], hit.to(f32)[None],
             gf.T, pack.T, rand, bg_rows_b,
         ]).contiguous()
-        si = gi[:, [0, 1, 2, 3, 4, 8]].T.contiguous()
+        # the list index is uploaded from pageable memory: a wait
+        with profiling.wait("shade_rows"):
+            si = gi[:, [0, 1, 2, 3, 4, 8]].T.contiguous()
         return shade_carry_fused(sf, si)
 
     n_full = max_bounce - 1 if last_bounce_vis else max_bounce
     for b in range(n_full):
-        org_f, dir_f, _, t_min = rays_of(carry)
-        prim, _ = find_hit(scene, org_f.contiguous(), dir_f.contiguous(),
-                           time, t_min=t_min, method=method)
-        carry = shade_from_prim(carry, rand_rows(b), prim, bg_rows)
+        with profiling.span("trace.bounce"):
+            with profiling.span("trace.find"):
+                profiling.tally("live_rays", R, _live, carry)
+                org_f, dir_f, _, t_min = rays_of(carry)
+                prim, _ = find_hit(scene, org_f.contiguous(),
+                                   dir_f.contiguous(), time, t_min=t_min,
+                                   method=method)
+            with profiling.span("trace.shade"):
+                carry = shade_from_prim(carry, rand_rows(b), prim, bg_rows)
 
-    if last_bounce_vis:
+    if not last_bounce_vis:
+        return carry[9:12].T
+    with profiling.span("trace.visibility"):
+        profiling.tally("live_rays", R, _live, carry)
         with torch.no_grad():
             org_f, dir_f, alive, t_min = rays_of(carry)
             org_f, dir_f = org_f.contiguous(), dir_f.contiguous()

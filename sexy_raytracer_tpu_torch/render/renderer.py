@@ -3,9 +3,11 @@
 
 Pixels are traced in fixed-size chunks of ``rays_per_chunk`` paths
 (``samples_per_batch`` samples per pixel); each chunk's radiance sums stay
-on the device until the chunk is done and are then downloaded, which is
-the only point where the host waits for the device. (pixel, sample) pairs
-key the counter-based RNG, so the image is independent of chunking.
+on the device until the chunk is done and are then downloaded. That
+download, the chunk's two uploads from pageable memory and the frame's
+few are where ``render_accumulate`` may block the host on the device (its
+``wait`` sites, ``utils/profiling.py``). (pixel, sample) pairs key the
+counter-based RNG, so the image is independent of chunking.
 
 Pixel-to-viewport mapping replicates main.cpp:209-211:
     u = (x + rand) / (W-1),  v = ((H - y) + rand) / (H-1)
@@ -27,7 +29,7 @@ from sexy_raytracer_tpu_torch.render.integrator import (
     trace_rays,
 )
 from sexy_raytracer_tpu_torch.utils import color as colorlib
-from sexy_raytracer_tpu_torch.utils import rng
+from sexy_raytracer_tpu_torch.utils import profiling, rng
 from sexy_raytracer_tpu_torch.utils.config import RenderConfig
 from sexy_raytracer_tpu_torch.utils.profiling import Meter
 
@@ -50,8 +52,9 @@ def render_pixels(scene, camera: Camera, pixel_ids, sample_start: int,
     pid = pixel_ids.repeat_interleave(spb)
     sid = sample_start + torch.arange(spb, dtype=torch.int32,
                                       device=dev).repeat(C)
-    keys = rng.ray_keys_2d(base_key, pid, sid)
-    ucam = rng.per_ray_uniform_block(keys, 5)
+    with profiling.span("rng", device=dev.type == "cuda"):
+        keys = rng.ray_keys_2d(base_key, pid, sid)
+        ucam = rng.per_ray_uniform_block(keys, 5)
 
     x = (pid % width).to(torch.float32)
     y = (pid // width).to(torch.float32)
@@ -94,16 +97,31 @@ def render_accumulate(scene, config: RenderConfig, camera: Camera | None = None,
     makes the result identical to an uninterrupted run. ``progress``
     prints a pixel counter and, at the end, the chunks' ``Meter`` report
     (renderer.py:153-247).
+
+    While a profiler records, the call is the span ``render``, each chunk
+    ``render.chunk`` and each sample batch ``render.batch``; every
+    statement that may block the host on the device (an upload from
+    pageable memory, a read back) is a ``wait`` site.
     """
+    with profiling.span("render"):
+        return _accumulate(scene, config, camera, method, progress,
+                           checkpoint)
+
+
+def _accumulate(scene, config, camera, method, progress, checkpoint):
     W, H = config.width, config.height
     spp = config.samples_per_pixel
     spb = min(config.samples_per_batch, spp)
     dev = scene.device
     if camera is None:
-        camera = Camera.from_config(config.camera, config.aspect, device=dev)
-    base_key = rng.key(config.seed, device=dev)
-    background = torch.tensor(config.background, dtype=torch.float32,
-                              device=dev)
+        with profiling.wait("camera"):
+            camera = Camera.from_config(config.camera, config.aspect,
+                                        device=dev)
+    with profiling.wait("key"):
+        base_key = rng.key(config.seed, device=dev)
+    with profiling.wait("background"):
+        background = torch.tensor(config.background, dtype=torch.float32,
+                                  device=dev)
 
     P = W * H
     chunk = max(1, min(config.rays_per_chunk // spb, P))
@@ -137,44 +155,51 @@ def render_accumulate(scene, config: RenderConfig, camera: Camera | None = None,
     meter = Meter("render_accumulate")
     unit = 0
     for start in range(0, P, chunk):
-        ids = order[start:min(start + chunk, P)]
-        n_valid = ids.shape[0]
-        if n_valid < chunk:
-            ids = np.pad(ids, (0, chunk - n_valid))
-        ids_dev = None
-        chunk_accum = None
-        for s0 in range(0, spp, spb):
-            if unit < units_done:
+        with profiling.span("render.chunk"):
+            ids = order[start:min(start + chunk, P)]
+            n_valid = ids.shape[0]
+            if n_valid < chunk:
+                ids = np.pad(ids, (0, chunk - n_valid))
+            ids_dev = None
+            chunk_accum = None
+            for s0 in range(0, spp, spb):
+                if unit < units_done:
+                    unit += 1
+                    continue
+                if ids_dev is None:
+                    chunk_t0 = time.perf_counter()
+                    chunk_paths = 0
+                    with profiling.wait("ids"):
+                        ids_dev = torch.from_numpy(ids).to(dev)
+                    rows = accum[ids]
+                    with profiling.wait("accum"):
+                        chunk_accum = torch.from_numpy(rows).to(dev)
+                n_s = min(spb, spp - s0)  # final batch may be partial
+                with profiling.span("render.batch"):
+                    chunk_accum = chunk_accum + render_pixels(
+                        scene, camera, ids_dev, s0, base_key, background,
+                        width=W, height=H, spb=n_s, spp_total=spp,
+                        max_bounce=config.max_bounce, method=method,
+                        last_bounce_vis=vis_ok,
+                    )
+                chunk_paths += n_valid * n_s
                 unit += 1
-                continue
-            if ids_dev is None:
-                chunk_t0 = time.perf_counter()
-                chunk_paths = 0
-                ids_dev = torch.from_numpy(ids).to(dev)
-                chunk_accum = torch.from_numpy(accum[ids]).to(dev)
-            n_s = min(spb, spp - s0)  # final batch may be partial
-            chunk_accum = chunk_accum + render_pixels(
-                scene, camera, ids_dev, s0, base_key, background,
-                width=W, height=H, spb=n_s, spp_total=spp,
-                max_bounce=config.max_bounce, method=method,
-                last_bounce_vis=vis_ok,
-            )
-            chunk_paths += n_valid * n_s
-            unit += 1
-        if ids_dev is not None:
-            # the download waits for the chunk: the sync point
-            accum[ids[:n_valid]] = chunk_accum.cpu().numpy()[:n_valid]
-            meter.seconds += time.perf_counter() - chunk_t0
-            meter.paths += chunk_paths
-            meter.rays += chunk_paths * config.max_bounce
-            meter.steps += 1
-            units_done = unit
-            if checkpoint is not None:
-                np.savez(
-                    checkpoint, accum=accum, units_done=units_done,
-                    shape=np.asarray([H, W]), spp=spp, seed=config.seed,
-                    chunk=chunk, spb=spb, order_hash=order_hash,
-                )
+            if ids_dev is not None:
+                # the download waits for the chunk: the sync point
+                with profiling.wait("download"):
+                    rows = chunk_accum.cpu()
+                accum[ids[:n_valid]] = rows.numpy()[:n_valid]
+                meter.seconds += time.perf_counter() - chunk_t0
+                meter.paths += chunk_paths
+                meter.rays += chunk_paths * config.max_bounce
+                meter.steps += 1
+                units_done = unit
+                if checkpoint is not None:
+                    np.savez(
+                        checkpoint, accum=accum, units_done=units_done,
+                        shape=np.asarray([H, W]), spp=spp, seed=config.seed,
+                        chunk=chunk, spb=spb, order_hash=order_hash,
+                    )
         if progress:
             print(f"\rpixels {min(start + chunk, P)}/{P}", end="", flush=True)
     if progress:

@@ -1,20 +1,36 @@
 """The port's profiling helpers and tools on the CPU: ``Meter`` and
 ``sync`` as tests/test_profiling.py holds the JAX package's (with the same
 JSON keys), ``render_accumulate`` printing the meter's line, ``trace``,
-and the tools of ``sexy_raytracer_tpu_torch/tools`` at small sizes: the
-histogram A/B, the train-step components, one big-scene point and the
-sweep's output file, the per-op tables and the refusal of ``--hlo``."""
+the spans, waits and counters of the entry layers (off without a
+profiler, nested, counted, and leaving every output bit for bit as it
+is), and the tools of ``sexy_raytracer_tpu_torch/tools`` at small sizes:
+the histogram A/B, the train-step components, one big-scene point and the
+sweep's output file, the per-op tables and the refusal of ``--hlo``. One
+test, marked ``cuda``, holds every host synchronisation of a frame and a
+train step on the card to a ``wait`` site."""
 
+import dataclasses
 import json
 import subprocess
 import sys
+import time
+import traceback
+import warnings
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from sexy_raytracer_tpu_torch.diff.inverse import (  # noqa: E402
+    make_optimizer,
+    make_train_step,
+)
+from sexy_raytracer_tpu_torch.models import presets  # noqa: E402
 from sexy_raytracer_tpu_torch.models.scene import SceneBuilder  # noqa: E402
 from sexy_raytracer_tpu_torch.ops import _cuda  # noqa: E402
+from sexy_raytracer_tpu_torch.render import integrator  # noqa: E402
+from sexy_raytracer_tpu_torch.render.camera import Camera  # noqa: E402
 from sexy_raytracer_tpu_torch.render.renderer import render_accumulate  # noqa: E402
 from sexy_raytracer_tpu_torch.tools import devtime  # noqa: E402
 from sexy_raytracer_tpu_torch.tools import prof_dump, prof_step  # noqa: E402
@@ -23,6 +39,7 @@ from sexy_raytracer_tpu_torch.utils.config import (  # noqa: E402
     CameraConfig,
     RenderConfig,
 )
+from sexy_raytracer_tpu_torch.utils import profiling, rng  # noqa: E402
 from sexy_raytracer_tpu_torch.utils.profiling import Meter, sync, trace  # noqa: E402
 
 SMALL = dict(pixels=128, spb=2, n=6, height=16)  # the stand-in at 28x16
@@ -89,6 +106,272 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     data = json.loads(open(prof.trace_path).read())
     assert prof.trace_path.startswith(str(tmp_path))
     assert any("aten::" in e.get("name", "") for e in data["traceEvents"])
+
+
+# -- spans, waits and counters ------------------------------------------------
+
+# the frame's own waits (camera, key, background, emissive_tris); a chunk's
+# (ids, accum, download); a sample batch's (emissive_spheres and one
+# shade_rows a bounce)
+FRAME_WAITS = {"camera", "key", "background", "emissive_tris"}
+CHUNK_WAITS = {"ids", "accum", "download"}
+
+
+def _frame(dev="cpu", height=8, spp=2, spb=2, max_bounce=3, chunk=128):
+    """The stand-in at a toy size: relief, ground, light, two spheres."""
+    scene, cfg = presets.flagship_standin(n=6, spp=spp, height=height,
+                                          device=dev)
+    return scene, dataclasses.replace(cfg, samples_per_batch=spb,
+                                      max_bounce=max_bounce,
+                                      rays_per_chunk=chunk, seed=5)
+
+
+def _step(scene, cfg, dev="cpu", pixels=64):
+    params = {"shade_atlas": scene.shade_atlas}
+    step = make_train_step(
+        cfg, make_optimizer(params, 1e-2), spb=2,
+        last_bounce_vis=integrator.scene_no_emissive_tris(scene))
+    g = torch.Generator().manual_seed(0)
+    n_pix = cfg.width * cfg.height
+    ids = torch.randperm(n_pix, generator=g)[:pixels].to(torch.int32)
+    ids = ids.to(dev)
+    target = torch.rand((pixels, 3), generator=g).to(dev)
+    cam = Camera.from_config(cfg.camera, cfg.aspect, device=dev)
+    key = rng.key(11, device=dev)
+
+    def run(state):
+        return step(state, scene, cam, ids, target, key)
+
+    return step.init(params), run
+
+
+def _names(log):
+    """By span name, the rows of a snapshot's span log."""
+    by = {}
+    for row in log:
+        by.setdefault(row[0], []).append(row)
+    return by
+
+
+def test_no_profiler_nothing_logged():
+    before = profiling.snapshot()
+    called = []
+    scene, cfg = _frame()
+    render_accumulate(scene, cfg)
+    state, run = _step(scene, cfg)
+    run(state)
+    profiling.tally("x", 1, called.append, 1)
+    assert profiling.snapshot() == before and called == []
+    # off, every span and wait is one shared no-op
+    assert profiling.span("a") is profiling.wait("b") \
+        is profiling.span("c", device=True)
+
+
+def test_spans_nest_on_the_profilers_timeline(tmp_path):
+    with trace(tmp_path) as prof:
+        with profiling.span("outer"):
+            time.sleep(0.01)
+            with profiling.span("outer.a"):
+                time.sleep(0.02)
+                with profiling.wait("site"):
+                    time.sleep(0.01)
+            with profiling.span("outer.b"):
+                time.sleep(0.01)
+        with profiling.span("second"):
+            pass
+    snap = profiling.snapshot()
+    log = snap["spans"]
+    assert [(r[0], r[1]) for r in log] == [
+        ("outer", -1), ("outer.a", 0), ("wait.site", 1), ("outer.b", 0),
+        ("second", -1)]
+    own = [r[4] for r in log]
+    dur = [r[3] - r[2] for r in log]
+    assert own[0] == dur[0] - dur[1] - dur[3]
+    assert own[1] == dur[1] - dur[2]
+    assert own[2] == dur[2] and own[0] >= 0.009e9
+    assert all(a[3] <= b[2] for a, b in zip(log[1:3], log[3:]))
+    assert snap["waits"] == {"site": 1}
+    # on the CPU no span has device time
+    assert {r[5] for r in log} == {None}
+    names = {e.name for e in prof.events()}
+    assert {"outer", "outer.a", "wait.site", "outer.b"} <= names
+    assert json.loads(open(prof.spans_path).read()) \
+        == json.loads(json.dumps(snap))
+
+
+def test_each_recording_starts_a_new_log(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with trace(tmp_path):
+        with profiling.span("first"):
+            pass
+    with trace(tmp_path):  # straight after: a log of its own
+        with profiling.span("again"):
+            pass
+    assert [r[0] for r in profiling.snapshot()["spans"]] == ["again"]
+    with profiling.span("between"):  # no profiler: not logged
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.wait("w"):
+            pass
+    snap = profiling.snapshot()
+    assert [r[0] for r in snap["spans"]] == ["wait.w"]
+    assert snap["waits"] == {"w": 1}
+    with trace(tmp_path):  # straight after another profiler's recording
+        pass
+    assert profiling.snapshot() == {"spans": [], "waits": {}, "tallies": {}}
+
+
+@pytest.mark.parametrize("spp,spb,max_bounce,chunk", [
+    (2, 2, 3, 128),   # one batch a chunk, as the frame cells run
+    (4, 2, 2, 96),    # two batches a chunk, a short last chunk
+])
+def test_render_waits_by_site(tmp_path, spp, spb, max_bounce, chunk):
+    scene, cfg = _frame(spp=spp, spb=spb, max_bounce=max_bounce,
+                        chunk=chunk)
+    with trace(tmp_path):
+        render_accumulate(scene, cfg)
+    chunks = -(-cfg.width * cfg.height // (chunk // spb))
+    assert cfg.width * cfg.height % (chunk // spb)  # the last is short
+    batches = chunks * (spp // spb)
+    want = {k: 1 for k in FRAME_WAITS}
+    want.update({k: chunks for k in CHUNK_WAITS})
+    want.update(emissive_spheres=batches, shade_rows=batches * max_bounce)
+    snap = profiling.snapshot()
+    assert snap["waits"] == want
+    log = snap["spans"]
+    by = _names(log)
+    assert len(by["render"]) == 1 and len(by["render.chunk"]) == chunks
+    assert len(by["render.batch"]) == len(by["trace"]) == batches
+    assert {log[r[1]][0] for r in by["render.chunk"]} == {"render"}
+    assert {log[r[1]][0] for r in by["trace.find"]} == {"trace.bounce"}
+    assert {log[r[1]][0] for r in by["rng"]} == {"render.batch", "trace"}
+    assert len(by["trace.bounce"]) == batches * (max_bounce - 1)
+    assert len(by["trace.visibility"]) == batches
+
+
+def test_emissive_tris_waits_only_with_triangles(tmp_path):
+    """The read back of the triangles' materials is a wait site where
+    there are triangles to read; a scene of spheres alone reads nothing."""
+    scene, _ = _frame()
+    b = SceneBuilder()
+    b.add_sphere((0, 0, -2), 1.0, b.add_pbr_material())
+    spheres = b.build(build_bvh=False, device="cpu")
+    with trace(tmp_path):
+        assert integrator.scene_no_emissive_tris(spheres)
+        assert integrator.scene_no_emissive_tris(scene)
+    snap = profiling.snapshot()
+    assert snap["waits"] == {"emissive_tris": 1}
+    assert [r[0] for r in snap["spans"]] == ["wait.emissive_tris"]
+
+
+def test_train_step_spans(tmp_path):
+    scene, cfg = _frame()
+    state, run = _step(scene, cfg)
+    with trace(tmp_path):
+        run(state)
+    snap = profiling.snapshot()
+    names = [r[0] for r in snap["spans"]]
+    parent = {r[0]: r[1] for r in snap["spans"]}
+    top = names.index("step")
+    for child in ("step.forward", "step.backward", "step.adam",
+                  "wait.background"):
+        assert parent[child] == top
+    assert parent["wait.resolve"] == names.index("step.forward")
+    assert snap["waits"] == {"background": 1, "resolve": 1,
+                             "emissive_spheres": 1,
+                             "shade_rows": cfg.max_bounce}
+
+
+def test_live_ray_counter_matches_the_finds(tmp_path, monkeypatch):
+    """Every find of a wavefront, the last bounce's occlusion pass too,
+    counts its live lanes: those it is given a real ``t_min`` for (dead
+    lanes get 3e38, so they miss everything)."""
+    seen = []
+    for name in ("find_hit", "find_occluded"):
+        fn = getattr(integrator, name)
+
+        def counted(*a, _fn=fn, **kw):
+            seen.append((int((kw["t_min"] < 1e30).sum()), a[1].shape[0]))
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(integrator, name, counted)
+    scene, cfg = _frame(max_bounce=4)
+    with trace(tmp_path):
+        render_accumulate(scene, cfg)
+    live, slots = profiling.snapshot()["tallies"]["live_rays"]
+    assert live == sum(n for n, _ in seen)
+    assert slots == sum(r for _, r in seen)
+    assert 0 < live < slots
+
+
+def test_image_bit_identical_with_tracing(tmp_path):
+    scene, cfg = _frame(spp=4, spb=2, max_bounce=3, chunk=96)
+    plain = render_accumulate(scene, cfg)
+    with trace(tmp_path):
+        traced = render_accumulate(scene, cfg)
+    assert profiling.snapshot()["tallies"]["live_rays"][0] > 0
+    assert np.array_equal(plain, traced)
+
+
+def test_steps_bit_identical_with_tracing(tmp_path):
+    scene, cfg = _frame()
+    state, run = _step(scene, cfg)
+    s1, loss1 = run(state)
+    s2, loss2 = run(s1)
+    with trace(tmp_path):
+        t1, tloss1 = run(state)
+        t2, tloss2 = run(t1)
+    assert len(_names(profiling.snapshot()["spans"])["step"]) == 2
+    assert torch.equal(loss1, tloss1) and torch.equal(loss2, tloss2)
+    for a, b in ((s2.params, t2.params), (s2.opt_state.mu, t2.opt_state.mu),
+                 (s2.opt_state.nu, t2.opt_state.nu)):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.cuda
+def test_every_card_sync_is_a_wait_site(tmp_path):
+    """A frame and a train step on the card under
+    ``set_sync_debug_mode("warn")``: each synchronisation warns, and at
+    each warning a ``wait`` span of the program must be open; and each
+    ``wait`` span entered saw a synchronisation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _cuda.build()
+    scene, cfg = _frame("cuda", height=90, spp=4, spb=4, max_bounce=4,
+                        chunk=8192)
+    state, run = _step(scene, cfg, "cuda", pixels=1024)
+    render_accumulate(scene, cfg)
+    run(state)
+    torch.cuda.synchronize()
+    found = []  # (host ns, the program's innermost frame) a warning
+
+    def hook(message, *a, **kw):
+        if "called a synchronizing CUDA operation" in str(message):
+            where = [f"{f.filename.split('/')[-1]}:{f.lineno}"
+                     for f in traceback.extract_stack()[:-1]
+                     if "sexy_raytracer_tpu_torch" in f.filename][-1:]
+            found.append((time.time_ns(), where))
+
+    with trace(tmp_path), warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            render_accumulate(scene, cfg)
+            s1, _ = run(state)
+            run(s1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert found, "no synchronisation seen: the debug mode is off"
+    waits = [r for r in profiling.snapshot()["spans"]
+             if r[0].startswith("wait.")]
+    inside = [[r for r in waits if r[2] <= t <= r[3]] for t, _ in found]
+    outside = [w for (_, w), rows in zip(found, inside) if not rows]
+    assert not outside, outside
+    # and every wait site entered synchronised at least once
+    waited = {id(r) for rows in inside for r in rows}
+    assert not [r[0] for r in waits if id(r) not in waited]
 
 
 def test_profile_histogram_small():
