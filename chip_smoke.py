@@ -21,7 +21,10 @@ nonzero without a result line:
      3, 4 and 6 timed beside their copy floors (``fused.stack_copy``),
      kernel 6 also on a copy of its stacks whose rows are not 16-byte
      aligned (it then reads device memory instead of bulk-copying its
-     tiles), bit-equal to its output on the stacks;
+     tiles), bit-equal to its output on the stacks; the RNG kernels
+     (``rng.ray_keys_and_camera``, ``rng.bounce_draws``) bit for bit, on
+     the chunk's ids and keys and on the fuzz wavefront's (int64 ids),
+     bounded by their SASS instructions on the busiest pipe;
    * backward kernels on the inputs of one train step (131,072 paths) and
      of the fuzz wavefront's backward: the hit-record and shade VJPs, with
      the cotangent scaled to unit size, within atol 2e-5, rtol 1e-4 of
@@ -46,7 +49,8 @@ nonzero without a result line:
 4. a full 1280x720, 8-spp, 4-bounce frame of the flagship stand-in scene
    through ``render_image``, with the launch counters reset before it and
    read after it: find 3 times, occlusion and its regrouping pass once,
-   hit record and shade 4 times per chunk, no backward kernel; the image must vary, the radiance
+   hit record and shade 4 times, the two RNG kernels once per chunk, no
+   backward kernel; the image must vary, the radiance
    be finite, a second frame be identical, and at least 5% of primary rays
    must first hit a triangle;
 5. frame time and Mrays/s (paths x 4 bounces);
@@ -55,8 +59,9 @@ nonzero without a result line:
    relative gradient 1e-2, bench.py:192), then 2 warm-up and 8 timed steps
    of ``make_train_step`` with ``make_optimizer(params, 1e-3)`` on 32,768
    pixels at spb 4 with the launch counters reset before the timed steps:
-   per step find 3, occlusion and its pass 1, hit record 4, shade 4 and
-   each backward kernel 4 times; every trained parameter must move and
+   per step find 3, occlusion and its pass 1, hit record 4, shade 4,
+   each backward kernel 4 times and each RNG kernel once; every trained
+   parameter must move and
    stay finite.
 
 7. the big scene, ``flagship_standin(n=389)``: 302,642 triangles in 1,183
@@ -90,8 +95,7 @@ nonzero without a result line:
      1's and kernel 8's times and tests at that shape;
    * a counted 1280x720, ``BIG_SPP``-spp, 4-bounce frame: per chunk the
      streamed find 3 times, occlusion and its pass once, hit record and
-     shade 4 times,
-     no other kernel; finite, repeatable, at least 5% of primary rays on
+     shade 4 times, the RNG kernels once, no other kernel; finite, repeatable, at least 5% of primary rays on
      a triangle; its time and Mrays/s.
 
 8. the tools and the reference integrator:
@@ -110,7 +114,8 @@ nonzero without a result line:
      1 once per bounce and nothing else, finite, within the 0.5% mismatch
      budget of the fused integrator; both timed; one backward of the train
      loss on 4,096 pixels through it: kernel 7 once per bounce (the
-     atlas), gradients within relative 5e-4 of the fused path's;
+     atlas) and the ray keys' kernel once, gradients within relative 5e-4
+     of the fused path's;
    * ``tools.profile`` step and xplane on the stand-in, and
      ``_bigscene_one`` at 3,042 and 304,000 triangles in subprocesses;
      the profiler's device events name every ctypes kernel of the train
@@ -145,7 +150,7 @@ nonzero without a result line:
     metal, moving diffuse), rendered by the command line's ``main(["render",
     ...])`` in this process with the launch counters around it (per chunk
     the find 3 times, occlusion and its pass once, hit record and shade 4
-    times, no other kernel); finite, a second render identical, the image
+    times, the RNG kernels once, no other kernel); finite, a second render identical, the image
     varying; glass, fuzzy metal and moving diffuse spheres each hit by at
     least 0.1% of the frame's primary rays; 4,096 pixels (half spread over
     the frame, half on glass) against the same ``render_pixels`` call on
@@ -578,11 +583,12 @@ def frame_plan(cfg):
 def frame_counts(kernels, calls, find="srt_find_closest"):
     """The launch counts a counted frame of ``calls`` render_pixels calls
     must show: the find 3 times, occlusion and its pass once, hit record and
-    shade 4 times a call, no other kernel."""
+    shade 4 times, the two RNG kernels once a call, no other kernel."""
     expect = {k.symbol: 0 for k in kernels}
     expect.update({find: 3 * calls, "srt_find_any": calls,
                    "srt_any_regroup": calls, "srt_hitrec": 4 * calls,
-                   "srt_shade": 4 * calls})
+                   "srt_shade": 4 * calls, "srt_rng_keys": calls,
+                   "srt_rng_bounce": calls})
     return expect
 
 
@@ -1418,8 +1424,9 @@ def tools_phase(torch, dev, train_per_step, frame_float, reset_counts,
     inv_step = dict(train_per_step)
     inv_step["srt_hitrec_bwd"] -= 1
     # a trace without the last-bounce shortcut: find, hit record, shade
-    # at each of the 4 bounces
-    trace4 = {"srt_find_closest": 4, "srt_hitrec": 4, "srt_shade": 4}
+    # at each of the 4 bounces, the bounce draws once
+    trace4 = {"srt_find_closest": 4, "srt_hitrec": 4, "srt_shade": 4,
+              "srt_rng_bounce": 1}
 
     def frame_calls(cfg):
         return frame_counts(K, frame_plan(cfg)[0])
@@ -1572,10 +1579,12 @@ def tools_phase(torch, dev, train_per_step, frame_float, reset_counts,
         f"{row['mrays_per_s']:.3f} Mrays/s ({scaling.PIXELS} pixels x spb "
         f"{scaling.SPB} x 4 bounces, bruteforce find); launches a chunk "
         f"{launched} (the find is plain PyTorch: the hit record and shade "
-        f"at each bounce, no last-bounce shortcut); its chunk bit-equal to "
+        f"at each bounce, no last-bounce shortcut, the RNG kernels once); "
+        f"its chunk bit-equal to "
         f"render_pixels here: {np.array_equal(chunk_rad, here)}; "
         f"{time.perf_counter() - t0:.1f} s with the spawn ({smi})")
-    if launched != {"srt_hitrec": 4, "srt_shade": 4} \
+    if launched != {"srt_hitrec": 4, "srt_shade": 4, "srt_rng_keys": 1,
+                    "srt_rng_bounce": 1} \
             or not np.array_equal(chunk_rad, here):
         raise AssertionError("the scaling curve's one-rank point failed")
 
@@ -1602,7 +1611,7 @@ def tools_phase(torch, dev, train_per_step, frame_float, reset_counts,
              + n_bounce * (1 + diag_r5.TIMED + 2))
     frames = len(diag_r5.FRAME_REGIONS) * (1 + diag_r5.FRAME_TIMED)
     want = add_counts(counts_of(K, {"srt_find_closest": finds}),
-                      counts_of(K, trace4, frames))
+                      counts_of(K, {**trace4, "srt_rng_keys": 1}, frames))
     parity = {k: v for k, v in res.items() if k.startswith("compact_parity")}
     log(f"tools: diag {json.dumps(res)}; launches {got} (expected {want}); "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1653,6 +1662,7 @@ def main(argv=None) -> int:
     from sexy_raytracer_tpu_torch.tools import (
         find_split,
         histogram_split,
+        rng_split,
         shade_split,
     )
     from sexy_raytracer_tpu_torch.tools.histogram_split import (
@@ -1708,7 +1718,8 @@ def main(argv=None) -> int:
     fwd_wrappers = [(find, "find_closest"), (find, "any_regroup"),
                     (find, "find_any"),
                     (integrator, "hitrec_fused"),
-                    (integrator, "shade_carry_fused")]
+                    (integrator, "shade_carry_fused"),
+                    (rng, "ray_keys_and_camera"), (rng, "bounce_draws")]
     bwd_wrappers = [(fused, "hitrec_bwd"), (fused, "shade_bwd"),
                     (histogram, "dense_histogram")]
 
@@ -1767,7 +1778,11 @@ def main(argv=None) -> int:
     fuzz_inputs = {k: v[0] for k, v in capture_calls(
         *zip(*fwd_wrappers), lambda: integrator.trace_rays_fused(
             scene, fo, fd, ft, fkeys, background, cfg.max_bounce,
-            last_bounce_vis=True)).items()}
+            last_bounce_vis=True)).items() if v}
+    # the trace takes its keys: the fuzz keys' own inputs (int64 ids)
+    fuzz_inputs["ray_keys_and_camera"] = (
+        base_key, torch.arange(4096, device=dev),
+        torch.zeros(4096, dtype=torch.int64, device=dev))
     fuzz_inputs.update({k: v[-1] for k, v in capture_calls(
         *zip(*bwd_wrappers), fuzz_backward).items()})
 
@@ -1911,6 +1926,22 @@ def main(argv=None) -> int:
                        f"abs diff {float(err.max()):.3g}); " \
                        f"{int(keep.sum())} of {idx.numel()} entries kept"
 
+    def check_rng(kern, plain):
+        """The RNG kernels against their plain int64 versions: every key
+        and every draw's bits equal."""
+        def check(inp):
+            got, want = kern(*inp), plain(*inp)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            n = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                    if g.dtype == torch.float32 else int((g != w).sum())
+                    for g, w in zip(got, want))
+            if n:
+                raise AssertionError(f"{kern.__name__}: {n} values differ "
+                                     "from the plain version")
+            return 0.0, 0, "keys and draws bit-equal to the plain version"
+        return check
+
     def hit_ill(hf, g):
         return checks.ill_conditioned_lanes(hf, fused.hitrec_math(hf))
 
@@ -1965,6 +1996,29 @@ def main(argv=None) -> int:
         return bytes_of(*stacks) + n_out_rows * 4 * R, ops, \
             f"{ops / R:.0f} float ops per ray (plain version, counted)"
 
+    # the RNG kernels: their SASS instructions a thread, the busiest pipe
+    rng_sass = rng_split.sass_instructions()
+
+    def rng_bound(kernel, threads, n_bytes, what):
+        _, pipe = rng_split.ops_ms({kernel: threads}, rng_sass)
+        n = rng_sass[kernel]["pipes"][pipe]
+        return n_bytes, threads * n, \
+            f"{n} {pipe} instructions a {what} (7 threefries; " \
+            f"rng_split.PIPE_RATES)", \
+            rng_split.PIPE_RATES[pipe] * rng_split.SM_CLOCKS_PER_S
+
+    def rng_keys_bound(inp):
+        _, pid, sid = inp
+        R = pid.shape[0]
+        return rng_bound("ray_keys_kernel", R, R * (
+            pid.element_size() + sid.element_size() + 16 + 20), "path")
+
+    def rng_bounce_bound(inp):
+        keys, B = inp
+        R = keys.shape[0]
+        return rng_bound("bounce_kernel", R * B, R * 16 + R * B * 24,
+                         "(path, bounce)")
+
     def histogram_bound(inp):
         idx, vals, n_bins = inp
         return bytes_of(idx, vals) + n_bins * vals.shape[1] * 4, \
@@ -1998,6 +2052,14 @@ def main(argv=None) -> int:
         "dense_histogram": (check_histogram, histogram.dense_histogram,
                             histogram.dense_histogram_plain,
                             histogram.HISTOGRAM, histogram_bound),
+        "ray_keys_and_camera": (
+            check_rng(rng.ray_keys_and_camera, rng.ray_keys_and_camera_plain),
+            rng.ray_keys_and_camera, rng.ray_keys_and_camera_plain,
+            rng.RAY_KEYS, rng_keys_bound),
+        "bounce_draws": (
+            check_rng(rng.bounce_draws, rng.bounce_draws_plain),
+            rng.bounce_draws, rng.bounce_draws_plain, rng.BOUNCE_DRAWS,
+            rng_bounce_bound),
     }
     def check_only(name, inp, check, label):
         """Hold a kernel to its plain version on ``inp``; log one line."""
@@ -2007,10 +2069,11 @@ def main(argv=None) -> int:
             f"max_abs_err {err:.3g}; {note}")
 
     def shape_of(name, inp):
-        """The wavefront's shape: the stack for the fused kernels, the ray
-        table (or the histogram's values) for the others."""
-        return list(inp[0 if name.startswith(("hitrec", "shade")) else 1]
-                    .shape)
+        """The wavefront's shape: the stack for the fused kernels, the keys
+        for the bounce draws, the ray table (or the histogram's values, the
+        pixel ids) for the others."""
+        return list(inp[0 if name.startswith(("hitrec", "shade", "bounce"))
+                        else 1].shape)
 
     def record(name, handle, inp, check, kern, plain, bound_of, label,
                reps=20, plain_reps=5, library=None):
@@ -2023,9 +2086,10 @@ def main(argv=None) -> int:
         ms = time_ms(torch, lambda: kern(*inp), reps)
         plain_ms = time_ms(torch, lambda: plain(*inp), plain_reps)
         lib_ms = None if library is None else time_ms(torch, library, reps)
-        n_bytes, n_ops, work = bound_of(inp)
+        # a fourth value: the operations' rate (float32's by default)
+        n_bytes, n_ops, work, *rate = bound_of(inp)
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+        t_ops = n_ops / (rate[0] if rate else F32_FLOPS_PER_S) * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         shape = shape_of(name, inp)
@@ -2310,7 +2374,8 @@ def main(argv=None) -> int:
                    "srt_hitrec": 4 * n_steps, "srt_shade": 4 * n_steps,
                    "srt_hitrec_bwd": 4 * n_steps,
                    "srt_shade_bwd": 4 * n_steps,
-                   "srt_histogram": 4 * n_steps})
+                   "srt_histogram": 4 * n_steps,
+                   "srt_rng_keys": n_steps, "srt_rng_bounce": n_steps})
     log(f"train launches over {n_steps} steps: {counts} (expected {expect})")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
@@ -2871,9 +2936,10 @@ def main(argv=None) -> int:
     counts = read_counts()
     expect = {k: 0 for k in counts}
     expect.update({"srt_find_closest": cfg.max_bounce,
-                   "srt_histogram": cfg.max_bounce})
+                   "srt_histogram": cfg.max_bounce, "srt_rng_keys": 1})
     log(f"reference loss backward launches (4096 pixels, spb 2): {counts} "
-        f"(expected {expect}: the atlas backward once per bounce)")
+        f"(expected {expect}: the atlas backward once per bounce; the ray "
+        f"keys' kernel once, the reference integrator's own draws plain)")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != {expect}")
     records["dense_histogram"]["launches_by_path"]["reference_backward"] = \
@@ -3004,7 +3070,8 @@ def main(argv=None) -> int:
         log(f"profiles of one chunk, one train step and one big-frame chunk "
             f"written to {args.profile}")
 
-    if sorted(r["source"] + r["replaces"] for r in records.values()) != \
+    if sorted(r["source"] + r["replaces"] for r in records.values()
+              if r["replaces"]) != \
             sorted(k.source + k.replaces.split(" ")[0] for k in _cuda.KERNELS
                    if k.replaces):
         raise AssertionError("the kernels' record does not list every "

@@ -34,7 +34,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "sexy_raytracer_tpu_torch"
-SOURCES = ("brute.cu", "find.cu", "fused.cu", "histogram.cu")
+SOURCES = ("brute.cu", "find.cu", "fused.cu", "histogram.cu", "rng.cu")
 HEADERS = ("pipeline.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -132,11 +132,10 @@ def trace_rays_reference(scene, org, dir, time, keys, background,
 
 def bounce_uniforms(keys, max_bounce: int):
     """Per-bounce draws ``[R, B, 6]``: ``bits(fold_in(k, 100 + b), (6,))``
-    as U[0,1) floats, for every ray key and bounce."""
+    as U[0,1) floats, for every ray key and bounce (``rng.bounce_draws``:
+    one kernel launch on the card)."""
     with profiling.span("rng", device=keys.is_cuda):
-        b = torch.arange(max_bounce, dtype=torch.int64, device=keys.device)
-        bkeys = rng.fold_in(keys[:, None, :], 100 + b)
-        return rng.uniforms_from_bits(rng.bits(bkeys, 6))
+        return rng.bounce_draws(keys, max_bounce)
 
 
 def _live(carry):

@@ -53,8 +53,7 @@ def render_pixels(scene, camera: Camera, pixel_ids, sample_start: int,
     sid = sample_start + torch.arange(spb, dtype=torch.int32,
                                       device=dev).repeat(C)
     with profiling.span("rng", device=dev.type == "cuda"):
-        keys = rng.ray_keys_2d(base_key, pid, sid)
-        ucam = rng.per_ray_uniform_block(keys, 5)
+        keys, ucam = rng.ray_keys_and_camera(base_key, pid, sid)
 
     x = (pid % width).to(torch.float32)
     y = (pid // width).to(torch.float32)

@@ -22,6 +22,13 @@ default since jax 0.5):
 A key is an int64 tensor ``[..., 2]`` holding two uint32 words. Words are
 kept in int64 and masked to 32 bits after every add, since torch's uint32
 arithmetic is incomplete.
+
+The integrator's two draw sites have kernels (``csrc/rng.cu``):
+``ray_keys_and_camera`` (the ray keys and the camera's five draws) and
+``bounce_draws`` (six draws a bounce). On CUDA tensors each is one launch
+of its kernel, which keeps the words in uint32 registers; on CPU tensors
+each runs its plain version, the int64 code here. The two give the same
+bits.
 """
 
 from __future__ import annotations
@@ -30,7 +37,18 @@ import math
 
 import torch
 
+from sexy_raytracer_tpu_torch.ops import _cuda
 from sexy_raytracer_tpu_torch.utils.mathx import PI
+
+RAY_KEYS = _cuda.Kernel(
+    "srt_rng_keys", "ppipiipp",
+    source="sexy_raytracer_tpu_torch/csrc/rng.cu", replaces="",
+)
+BOUNCE_DRAWS = _cuda.Kernel(
+    "srt_rng_bounce", "piip",
+    source="sexy_raytracer_tpu_torch/csrc/rng.cu", replaces="",
+)
+_IDS = (torch.int32, torch.int64)
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -120,6 +138,75 @@ def uniforms_from_bits(words):
 def per_ray_uniform_block(keys, n: int):
     """[R] keys -> [R, n] iid U[0,1) floats (24-bit resolution)."""
     return uniforms_from_bits(bits(keys, n))
+
+
+def ray_keys_and_camera(base_key, pid, sid):
+    """The ray keys ``[R, 2]`` of ``ray_keys_2d`` and their camera draws
+    ``per_ray_uniform_block(keys, 5)`` ``[R, 5]``: one launch of the
+    kernel on CUDA tensors, ``ray_keys_and_camera_plain`` on CPU ones.
+
+    ``base_key`` ``[2]`` int64; ``pid``, ``sid`` ``[R]`` int32 or int64;
+    all contiguous, on one device.
+    """
+    if not pid.is_cuda:
+        return ray_keys_and_camera_plain(base_key, pid, sid)
+    if base_key.shape != (2,) or base_key.dtype != torch.int64 \
+            or pid.dim() != 1 or sid.shape != pid.shape \
+            or pid.dtype not in _IDS or sid.dtype not in _IDS \
+            or not (base_key.device == sid.device == pid.device) \
+            or not (base_key.is_contiguous() and pid.is_contiguous()
+                    and sid.is_contiguous()) or pid.shape[0] >= 2 ** 31:
+        raise ValueError(
+            f"ray_keys_and_camera: need a contiguous [2] int64 key and [R] "
+            f"int32 or int64 pid and sid on one CUDA device, R below 2^31, "
+            f"got {tuple(base_key.shape)} {base_key.dtype} "
+            f"{base_key.device}, {tuple(pid.shape)} {pid.dtype} "
+            f"{pid.device}, {tuple(sid.shape)} {sid.dtype} {sid.device} "
+            f"(contiguous: {base_key.is_contiguous()}, "
+            f"{pid.is_contiguous()}, {sid.is_contiguous()})")
+    R = pid.shape[0]
+    keys = torch.empty((R, 2), dtype=torch.int64, device=pid.device)
+    ucam = torch.empty((R, 5), dtype=torch.float32, device=pid.device)
+    RAY_KEYS.launch(pid.device, _cuda.ptr(base_key), _cuda.ptr(pid),
+                    int(pid.dtype == torch.int64), _cuda.ptr(sid),
+                    int(sid.dtype == torch.int64), R, _cuda.ptr(keys),
+                    _cuda.ptr(ucam))
+    return keys, ucam
+
+
+def ray_keys_and_camera_plain(base_key, pid, sid):
+    """Plain version of ``ray_keys_and_camera``."""
+    keys = ray_keys_2d(base_key, pid, sid)
+    return keys, per_ray_uniform_block(keys, 5)
+
+
+def bounce_draws(keys, max_bounce: int):
+    """Per-bounce draws ``[R, B, 6]``: ``bits(fold_in(k, 100 + b), (6,))``
+    as U[0,1) floats of 24 bits, for every ray key ``[R, 2]`` and bounce
+    ``b < B``: one launch of the kernel on a CUDA tensor, the plain
+    version on a CPU one. On the card the keys must be contiguous int64."""
+    if not keys.is_cuda:
+        return bounce_draws_plain(keys, max_bounce)
+    if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int64 \
+            or not keys.is_contiguous() or max_bounce < 0 \
+            or keys.shape[0] * max_bounce >= 2 ** 31:
+        raise ValueError(
+            f"bounce_draws: need contiguous [R, 2] int64 keys on a CUDA "
+            f"device and R B below 2^31, got {tuple(keys.shape)} "
+            f"{keys.dtype} (contiguous: {keys.is_contiguous()}) and "
+            f"{max_bounce} bounces")
+    R = keys.shape[0]
+    out = torch.empty((R, max_bounce, 6), dtype=torch.float32,
+                      device=keys.device)
+    BOUNCE_DRAWS.launch(keys.device, _cuda.ptr(keys), R, int(max_bounce),
+                        _cuda.ptr(out))
+    return out
+
+
+def bounce_draws_plain(keys, max_bounce: int):
+    """Plain version of ``bounce_draws``."""
+    b = torch.arange(max_bounce, dtype=torch.int64, device=keys.device)
+    return uniforms_from_bits(bits(fold_in(keys[:, None, :], 100 + b), 6))
 
 
 def unit_vector_from_uniforms(u, v):

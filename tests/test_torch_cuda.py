@@ -878,6 +878,102 @@ def test_backward_kernels_on_the_shirley_field(dev):
     assert bool((hit & (si[0] == 1) & (sf[tfused.SF_GF + 6] > 0)).any())
 
 
+def _rng_inputs(R, seed, dev, id_dtype=torch.int32):
+    """A base key and ``[R]`` pixel and sample ids whose first entries are
+    the edges (pid 0, 1280 x 720 - 1 and 1280 x 720; sid 0 and 4999)."""
+    r = np.random.default_rng(abs(seed) % 2 ** 32)
+    pid = np.concatenate([[0, 1280 * 720 - 1, 1280 * 720],
+                          r.integers(0, 1280 * 720 + 1, R)])[:R]
+    sid = np.concatenate([[0, 4999, 4999], r.integers(0, 5000, R)])[:R]
+    return (rng.key(seed, dev), torch.tensor(pid, dtype=id_dtype, device=dev),
+            torch.tensor(sid, dtype=id_dtype, device=dev))
+
+
+def _assert_rng_kernels(base_key, pid, sid, bounces=4):
+    """Both RNG kernels against their plain versions, bit for bit; each
+    launched once."""
+    before = rng.RAY_KEYS.launches, rng.BOUNCE_DRAWS.launches
+    keys, ucam = rng.ray_keys_and_camera(base_key, pid, sid)
+    u = rng.bounce_draws(keys, bounces)
+    torch.cuda.synchronize()
+    assert (rng.RAY_KEYS.launches, rng.BOUNCE_DRAWS.launches) == \
+        (before[0] + 1, before[1] + 1)
+    keys_p, ucam_p = rng.ray_keys_and_camera_plain(base_key, pid, sid)
+    u_p = rng.bounce_draws_plain(keys_p, bounces)
+    assert keys.dtype == torch.int64 and keys.shape == (pid.shape[0], 2)
+    assert torch.equal(keys, keys_p)
+    assert ucam.shape == (pid.shape[0], 5)
+    assert torch.equal(ucam.view(torch.int32), ucam_p.view(torch.int32))
+    assert u.shape == (pid.shape[0], bounces, 6)
+    assert torch.equal(u.view(torch.int32), u_p.view(torch.int32))
+
+
+@pytest.mark.parametrize("R", [524288, 1048576])
+def test_rng_kernels_match_plain_at_main_path_shapes(dev, R):
+    """The frame chunk's 524,288 paths and the fit step's 1,048,576, 4
+    bounces each."""
+    _assert_rng_kernels(*_rng_inputs(R, 2147483653, dev))
+
+
+@pytest.mark.parametrize("R", [1, 255, 4099])
+@pytest.mark.parametrize("seed", [0, 42, 2**31 - 1, -1, -2**31, 2**32 + 3])
+def test_rng_kernels_on_edge_inputs(dev, seed, R):
+    """Seeds whose key words need their low 32 bits, ids at the frame's
+    edges, int32 and int64 ids, and R not a multiple of the block size."""
+    for id_dtype in (torch.int32, torch.int64):
+        _assert_rng_kernels(*_rng_inputs(R, seed, dev, id_dtype))
+    base_key, pid, sid = _rng_inputs(R, seed, dev)
+    _assert_rng_kernels(base_key, pid, sid.long(), bounces=1)
+
+
+def test_render_pixels_draws_through_the_rng_kernels(scene, dev, small_cfg,
+                                                     monkeypatch):
+    """One ``render_pixels`` call on the card launches each RNG kernel once
+    and runs no int64 threefry: the plain threefry raises here."""
+    from sexy_raytracer_tpu_torch.render.renderer import render_pixels
+
+    ids = torch.arange(0, 128 * 72, 7, dtype=torch.int32, device=dev)
+    args = (scene, Camera.from_config(small_cfg.camera, small_cfg.aspect,
+                                      device=dev), ids, 0,
+            rng.key(3, dev), torch.tensor(small_cfg.background, device=dev))
+    kw = dict(width=128, height=72, spb=2, spp_total=2, max_bounce=4)
+    want = render_pixels(*args, **kw)
+
+    def plain_threefry(*a):
+        raise AssertionError("the int64 threefry ran on the card")
+
+    monkeypatch.setattr(rng, "threefry2x32", plain_threefry)
+    before = {k.symbol: k.launches for k in _cuda.KERNELS}
+    got = render_pixels(*args, **kw)
+    torch.cuda.synchronize()
+    after = {k.symbol: k.launches for k in _cuda.KERNELS}
+    assert after["srt_rng_keys"] == before["srt_rng_keys"] + 1
+    assert after["srt_rng_bounce"] == before["srt_rng_bounce"] + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_rng_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """A wrong dtype, a non-contiguous input or a key on another device
+    raises; nothing launches."""
+    base_key, pid, sid = _rng_inputs(64, 5, dev)
+    keys = rng.ray_keys_and_camera(base_key, pid, sid)[0]
+    before = rng.RAY_KEYS.launches, rng.BOUNCE_DRAWS.launches
+    bad_keys = [
+        (base_key.int(), pid, sid), (base_key, pid.float(), sid),
+        (base_key, pid, sid.to(torch.int16)), (base_key.cpu(), pid, sid),
+        (base_key, pid[::2], sid[::2]), (base_key, pid, sid[:-1]),
+        (torch.stack([base_key, base_key], 1)[:, 0], pid, sid),
+    ]
+    for args in bad_keys:
+        with pytest.raises(ValueError):
+            rng.ray_keys_and_camera(*args)
+    for k, b in ((keys.int(), 4), (keys.t().contiguous().t(), 4),
+                 (keys[:, :1], 4), (keys, -1)):
+        with pytest.raises(ValueError):
+            rng.bounce_draws(k, b)
+    assert (rng.RAY_KEYS.launches, rng.BOUNCE_DRAWS.launches) == before
+
+
 def test_sharded_render_on_one_nccl_rank(dev, tmp_path):
     """``render_sharded`` on a (1, 1) mesh over NCCL: the float image of
     ``render``, bit for bit (the stand-in at 64x32, 8 spp; the same chunk,

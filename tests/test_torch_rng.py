@@ -66,6 +66,16 @@ def test_bits_and_uniform_block(n, pid_sid):
     np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
 
 
+def _jax_bounce_uniforms(jk, n_bounces):
+    """``bits(fold_in(k, 100 + b), (6,))`` as 24-bit U[0,1) floats, by
+    ``jax.random``, for every key of ``jk`` and bounce."""
+    bits = jax.vmap(lambda k: jnp.stack([
+        jax.random.bits(jax.random.fold_in(k, 100 + b), (6,))
+        for b in range(n_bounces)]))(jk)
+    return np.asarray((bits >> 8).astype(jnp.float32)
+                      * jnp.float32(1.0 / (1 << 24)))
+
+
 def test_bounce_draws_match_integrator_stream(pid_sid):
     """integrator.py:268-275 draws bits(fold_in(k, 100 + b), (6,))."""
     pid, sid = pid_sid
@@ -73,12 +83,8 @@ def test_bounce_draws_match_integrator_stream(pid_sid):
                           jnp.asarray(sid))
     tk = trng.ray_keys_2d(trng.key(1), torch.from_numpy(pid),
                           torch.from_numpy(sid))
-    bits = jax.vmap(lambda k: jnp.stack([
-        jax.random.bits(jax.random.fold_in(k, 100 + b), (6,))
-        for b in range(4)]))(jk)
-    ju = (bits >> 8).astype(jnp.float32) * jnp.float32(1.0 / (1 << 24))
     np.testing.assert_array_equal(bounce_uniforms(tk, 4).numpy(),
-                                  np.asarray(ju))
+                                  _jax_bounce_uniforms(jk, 4))
 
 
 def test_shaped_transforms(rng_np):
@@ -132,3 +138,25 @@ def test_uniform_matches_jax(shape, lo, hi):
     np.testing.assert_array_equal(one.numpy().view(np.int32),
                                   want[17].view(np.int32))
     assert (got >= lo).all() and (got < hi).all()
+
+
+@pytest.mark.parametrize("seed", [0, -1, 2**32 + 3])
+def test_cpu_tensors_take_the_plain_draws(seed, pid_sid):
+    """``ray_keys_and_camera`` and ``bounce_draws`` on CPU tensors run the
+    plain int64 versions, with no kernel launch: ``jax.random``'s keys and
+    draws, bit for bit."""
+    pid, sid = pid_sid
+    before = trng.RAY_KEYS.launches, trng.BOUNCE_DRAWS.launches
+    keys, ucam = trng.ray_keys_and_camera(trng.key(seed),
+                                          torch.from_numpy(pid),
+                                          torch.from_numpy(sid))
+    u = trng.bounce_draws(keys, 4)
+    assert (trng.RAY_KEYS.launches, trng.BOUNCE_DRAWS.launches) == before
+    jk = jrng.ray_keys_2d(jax.random.key(seed), jnp.asarray(pid),
+                          jnp.asarray(sid))
+    np.testing.assert_array_equal(keys.numpy(), _jkey_data(jk))
+    np.testing.assert_array_equal(
+        ucam.numpy().view(np.int32),
+        np.asarray(jrng.per_ray_uniform_block(jk, 5)).view(np.int32))
+    np.testing.assert_array_equal(u.numpy().view(np.int32),
+                                  _jax_bounce_uniforms(jk, 4).view(np.int32))
