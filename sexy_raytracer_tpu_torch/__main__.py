@@ -3,7 +3,8 @@
 
 The subcommands, flags and defaults are the JAX package's, plus
 ``--device`` (``cuda`` by default; ``cpu`` runs every kernel's plain
-PyTorch version, as the tests do). Scenes are built on that device and
+PyTorch version, as the tests do), and ``--preset`` also takes the port's
+own presets (``presets.PORT_PRESETS``). Scenes are built on that device and
 traced there; nothing falls back to the CPU. The JAX package's ``bench``
 subcommand has no counterpart yet.
 
@@ -12,6 +13,8 @@ Examples:
         --height 720 --spp 8 --out shirley.png
     python -m sexy_raytracer_tpu_torch render --preset square \\
         --data-dir data --height 240 --spp 16 --device cpu
+    python -m sexy_raytracer_tpu_torch render --preset cornell_box \\
+        --out cornell.png
     python -m sexy_raytracer_tpu_torch inverse --preset shirley_parity \\
         --height 180 --target target.png --steps 200 --losses-out losses.json
 """
@@ -28,7 +31,8 @@ import time
 def _add_render_args(p):
     p.add_argument("--preset", default="masterchief",
                    help="shirley | shirley_parity | cube | rustediron | "
-                        "masterchief | masterchief_glb | square | scene")
+                        "masterchief | masterchief_glb | square | scene, "
+                        "or the port's own: flagship_standin | cornell_box")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--spp", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
@@ -49,10 +53,13 @@ def _build(args):
     to ``shirley``."""
     from sexy_raytracer_tpu_torch.models import presets
 
-    if args.preset not in presets.PRESETS:
+    fn = presets.PRESETS.get(args.preset) \
+        or presets.PORT_PRESETS.get(args.preset)
+    if fn is None:
         raise SystemExit(
             f"unknown preset {args.preset!r}; available: "
-            + ", ".join(sorted(presets.PRESETS))
+            + ", ".join(sorted(presets.PRESETS)) + "; the port's own: "
+            + ", ".join(sorted(presets.PORT_PRESETS))
         )
     kwargs = {"device": args.device}
     if args.data_dir and args.preset != "shirley":
@@ -61,7 +68,7 @@ def _build(args):
         kwargs["spp"] = args.spp
     if args.height:
         kwargs["height"] = args.height
-    scene, cfg = presets.PRESETS[args.preset](**kwargs)
+    scene, cfg = fn(**kwargs)
     updates = {}
     if args.max_bounce:
         updates["max_bounce"] = args.max_bounce

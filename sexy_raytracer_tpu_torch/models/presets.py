@@ -8,8 +8,9 @@ names the JAX package's eight presets. The glTF presets (``cube``,
 asset through ``models/gltf.py`` and raise, as the JAX package's do, when
 it is absent; the Master Chief asset is not in the repository, so
 ``flagship_standin`` puts a procedural relief mesh with the chief's
-triangle count in the chief's place. ``flagship_standin`` has no JAX
-counterpart and stays outside ``PRESETS``.
+triangle count in the chief's place. ``flagship_standin`` and
+``cornell_box`` (the Cornell box of *Ray Tracing: The Next Week*) have no
+JAX counterpart and stay outside ``PRESETS``, in ``PORT_PRESETS``.
 
 Asset files are read from ``data_dir`` (default: ``$SRT_DATA_DIR``, else
 ``data/`` at the repository root). A missing texture file yields the
@@ -170,6 +171,82 @@ def flagship_standin(n: int = 39, spp: int = 8, height: int = 720,
     _add_iron_and_metal(b, data_dir)
     scene = b.build(build_bvh=build_bvh, device=device)
     return scene, _flagship_config(height, spp)
+
+
+# the Cornell box of Ray Tracing: The Next Week (chapter "Cornell Box")
+CORNELL_QUAD_UVS = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+
+
+def _cornell_quad(b, q, u, v, mat, towards) -> None:
+    """The book's quad ``(q, u, v)`` as one mesh of two triangles,
+    ``(q, q+u, q+u+v)`` and ``(q, q+u+v, q+v)``, wound so that its front
+    face looks towards the point ``towards``: the find kernels cull back
+    faces, where the book's quads are two-sided."""
+    q, u, v = (np.asarray(x, np.float64) for x in (q, u, v))
+    pos = np.stack([q, q + u, q + u + v, q + v])
+    idx = np.array([[0, 1, 2], [0, 2, 3]])
+    if np.dot(np.cross(u, v), np.asarray(towards, np.float64) - q) < 0.0:
+        idx = idx[:, [0, 2, 1]]
+    b.add_mesh(pos, CORNELL_QUAD_UVS, idx, mat)
+
+
+def _cornell_box_faces(b, size, degrees, offset, mat) -> None:
+    """The book's ``box((0,0,0), size)`` as six quads facing out, turned
+    by ``rotate_y(degrees)`` (x' = cos x + sin z, z' = -sin x + cos z),
+    then moved by ``offset``."""
+    dx = np.array([size[0], 0.0, 0.0])
+    dy = np.array([0.0, size[1], 0.0])
+    dz = np.array([0.0, 0.0, size[2]])
+    lo, hi = np.zeros(3), np.asarray(size, np.float64)
+    sides = [((lo[0], lo[1], hi[2]), dx, dy), ((hi[0], lo[1], hi[2]), -dz, dy),
+             ((hi[0], lo[1], lo[2]), -dx, dy), ((lo[0], lo[1], lo[2]), dz, dy),
+             ((lo[0], hi[1], hi[2]), dx, -dz), ((lo[0], lo[1], lo[2]), dx, dz)]
+    th = np.deg2rad(degrees)
+    c, s = np.cos(th), np.sin(th)
+    rot = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]])
+    off = np.asarray(offset, np.float64)
+    centre = rot @ (hi / 2.0) + off
+    for q, u, v in sides:
+        q = rot @ np.asarray(q, np.float64) + off
+        u, v = rot @ u, rot @ v
+        _cornell_quad(b, q, u, v, mat, 2.0 * q - centre + u + v)
+
+
+def cornell_box(spp: int = 200, height: int = 600,
+                data_dir: str | None = None, device="cuda"):
+    """The Cornell box of *Ray Tracing: The Next Week* (``cornell_box()``):
+    a green, a red and three white walls, a quad light of (15, 15, 15)
+    under the ceiling and two white boxes turned about y, added in the
+    book's order; 36 triangles, no sphere. The book's lambertian colours
+    are ``pbrMetallicRoughness`` materials at metallic 0 and roughness 0
+    with the colour as their colour factor and no albedo map (a solid
+    albedo map is read divided by 255, material.h:163-167, and would leave
+    the room black). Square frames at the book's depth of 50 on a black
+    background, under its camera: eye (278, 278, -800) looking at (278,
+    278, 0), vfov 40, no defocus. ``data_dir`` is ignored: the scene reads
+    no files."""
+    b = SceneBuilder()
+    red, white, green = (
+        b.add_pbr_material(base_color=(*c, 1.0))
+        for c in ((0.65, 0.05, 0.05), (0.73, 0.73, 0.73), (0.12, 0.45, 0.15)))
+    light = b.add_light_material((15.0, 15.0, 15.0))
+    room = (277.5, 277.5, 277.5)
+    _cornell_quad(b, (555, 0, 0), (0, 555, 0), (0, 0, 555), green, room)
+    _cornell_quad(b, (0, 0, 0), (0, 555, 0), (0, 0, 555), red, room)
+    _cornell_quad(b, (343, 554, 332), (-130, 0, 0), (0, 0, -105), light, room)
+    _cornell_quad(b, (0, 0, 0), (555, 0, 0), (0, 0, 555), white, room)
+    _cornell_quad(b, (555, 555, 555), (-555, 0, 0), (0, 0, -555), white, room)
+    _cornell_quad(b, (0, 0, 555), (555, 0, 0), (0, 555, 0), white, room)
+    _cornell_box_faces(b, (165, 330, 165), 15.0, (265, 0, 295), white)
+    _cornell_box_faces(b, (165, 165, 165), -18.0, (130, 0, 65), white)
+    cfg = RenderConfig(
+        width=height, height=height, samples_per_pixel=spp, max_bounce=50,
+        background=(0.0, 0.0, 0.0),
+        camera=CameraConfig(eye=(278.0, 278.0, -800.0),
+                            look_at=(278.0, 278.0, 0.0), up=(0.0, 1.0, 0.0),
+                            vfov_degrees=40.0, aperture=0.0, focus_dist=10.0,
+                            time0=0.0, time1=1.0))
+    return b.build(build_bvh=False, device=device), cfg
 
 
 MASTERCHIEF_ASSET = "masterchief2-separate-xf.gltf"
@@ -433,4 +510,10 @@ PRESETS = {
     "masterchief_glb": masterchief_glb,
     "square": square,
     "scene": scene_gltf,
+}
+
+# the port's own presets, which the JAX package has not
+PORT_PRESETS = {
+    "flagship_standin": flagship_standin,
+    "cornell_box": cornell_box,
 }

@@ -45,9 +45,13 @@ from sexy_raytracer_tpu_torch.ops.intersect import (
 from sexy_raytracer_tpu_torch.ops.lookup import atlas_lookup, table_lookup
 from sexy_raytracer_tpu_torch.ops.shade import material_packs, shade
 from sexy_raytracer_tpu_torch.utils import profiling, rng
+from sexy_raytracer_tpu_torch.utils.config import RenderConfig
 from sexy_raytracer_tpu_torch.utils.mathx import PI
 
 _BIG = 3.0e38
+# finds past the default depth (``RenderConfig.max_bounce``) also count
+# as deep
+DEEP_BOUNCE = RenderConfig.max_bounce
 
 
 def scene_no_emissive_tris(scene) -> bool:
@@ -158,7 +162,8 @@ def trace_rays_fused(scene, org, dir, time, keys, background,
     While a profiler records, the call is the span ``trace``, with the
     children ``trace.packs``, ``trace.bounce`` (``trace.find``,
     ``trace.shade``) and ``trace.visibility``, and each find adds the
-    wavefront's live rays and its ray count to the counter ``live_rays``.
+    wavefront's live rays and its ray count to the counter ``live_rays``,
+    and from bounce ``DEEP_BOUNCE`` on also to ``live_rays.deep``.
     """
     with profiling.span("trace"):
         return _trace_fused(scene, org, dir, time, keys, background,
@@ -305,6 +310,8 @@ def _trace_fused(scene, org, dir, time, keys, background, max_bounce,
         with profiling.span("trace.bounce"):
             with profiling.span("trace.find"):
                 profiling.tally("live_rays", R, _live, carry)
+                if b >= DEEP_BOUNCE:
+                    profiling.tally("live_rays.deep", R, _live, carry)
                 org_f, dir_f, _, t_min = rays_of(carry)
                 prim, _ = find_hit(scene, org_f.contiguous(),
                                    dir_f.contiguous(), time, t_min=t_min,
@@ -316,6 +323,8 @@ def _trace_fused(scene, org, dir, time, keys, background, max_bounce,
         return carry[9:12].T
     with profiling.span("trace.visibility"):
         profiling.tally("live_rays", R, _live, carry)
+        if max_bounce - 1 >= DEEP_BOUNCE:
+            profiling.tally("live_rays.deep", R, _live, carry)
         with torch.no_grad():
             org_f, dir_f, alive, t_min = rays_of(carry)
             org_f, dir_f = org_f.contiguous(), dir_f.contiguous()

@@ -112,6 +112,20 @@ def test_cli_surface():
             tmain.main(["render", *TOY])
 
 
+def test_render_reaches_the_ports_own_presets(tmp_path, capsys):
+    """``--preset`` also takes the port's own presets, which the JAX
+    package has not: the Cornell box at 12 x 12 and 2 spp, at the book's
+    50 bounces on its black background."""
+    out = tmp_path / "cornell.png"
+    assert tmain.main(["render", "--preset", "cornell_box", "--height", "12",
+                       "--spp", "2", "--device", "cpu",
+                       "--out", str(out)]) == 0
+    img = read_png(str(out))
+    assert img.shape == (12, 12, 3) and img.max() > 0
+    assert "rendering cornell_box: 12x12, 2 spp, 50 bounces, 36 tris, " \
+           "0 spheres" in capsys.readouterr().err
+
+
 def test_inverse_render_refuses_a_negative_seed():
     """``inverse_render`` draws its tiles with ``np.random.default_rng(seed)``
     in both packages, which refuses a negative seed before any step."""
